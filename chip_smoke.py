@@ -1,0 +1,489 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (moonsuperresolution_tpu_torch) on one
+NVIDIA card: the quickest proof that the port builds, starts and is right.
+
+    python3 chip_smoke.py [--seed 0]
+
+Run from the repository root on a machine with a card and the CUDA toolkit.
+Without a card, or without the repository around it, it exits non-zero and
+prints no result.  Phases; any failure exits non-zero:
+
+  1. The card's name and power limit (nvidia-smi), then every kernel of
+     csrc/ built from source, one nvcc per source, all started together.
+  2. Each kernel against its plain PyTorch version at the main path's
+     shapes: agreement, kernel time, plain time and the card's bound.
+  3. The main path: full-width GauGAN in bf16 (seeded random weights)
+     through ``pad_inputs``, ``generate_tile_list``, ``run_tiles_serial`` and
+     the commits over a synthetic raster of two production tiles (image
+     512, stride 64, tile 1024, batch 16) with nodata in it.  Every
+     launch counter is set to 0 just before and read just after; a kernel
+     of the path that never launched fails the run.  Then an interior tile
+     (every patch valid) is timed, and profiled once: device time by kind
+     of kernel and the card's idle share.
+  4. The output checked: the main path's maps finite where covered and
+     no_value elsewhere; the identity model over the same raster gives the
+     DEM back where covered; a small float32 model's tile on the card
+     agrees with the same tile on the CPU.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
+H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores
+
+NO_VALUE = -32768.0
+PROD = dict(image_size=512, stride=64, tile_size=1024, batch_size=16,
+            no_value=NO_VALUE, compute_dtype="bfloat16")
+N_TILES = 2
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def cuda_ms(fn, reps=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ----------------------------------------------------------------- phase 1
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_all():
+    from moonsuperresolution_tpu_torch import build
+
+    names = build.sources()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        logs = dict(zip(names, pool.map(build.build, names)))
+    for name, log in logs.items():
+        print(f"[build] {name}: {log.strip() or 'up to date'}",
+              file=sys.stderr)
+    print(f"[build] {len(names)} kernel sources in "
+          f"{time.perf_counter() - t0:.2f} s: {', '.join(names)}")
+    return names
+
+
+# ----------------------------------------------------------------- phase 2
+
+
+def patches_case(dev, seed):
+    """The patch-prep kernel at the main path's shape: L = 1920, G = 23,
+    P = 512, s = 64, with a nodata hole."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.infer.engine import TileGeometry
+    from moonsuperresolution_tpu_torch.ops import patches as tp
+
+    g = TileGeometry(512, 64, 1024)
+    gen = torch.Generator(dev).manual_seed(seed)
+    img = torch.randn((g.slab, g.slab), generator=gen, device=dev) * 30 + 128
+    dem = torch.randn((g.slab, g.slab), generator=gen, device=dev) * 50 + 1500
+    dem[700:900, 1000:1100] = NO_VALUE
+    args = (img, dem, (g.grid, g.grid), g.stride, g.image_size, NO_VALUE)
+
+    got = tp.extract_normalize_patches(*args)
+    torch.cuda.synchronize()
+    want = tp.extract_normalize_patches_plain(*args)
+    check(bool((got[1] == want[1]).all()), "patches: valid differs")
+    check(0 < int(want[1].sum()) < g.grid ** 2,
+          "patches: the hole should reject some patches, not all")
+    err = max(float((a - b).abs().max()) for a, b in
+              ((got[0], want[0]), (got[2], want[2]), (got[3], want[3])))
+    check(err <= 1e-6, f"patches: max abs error {err} > 1e-6")
+
+    n, p = g.grid ** 2, g.image_size
+    moved = 2 * g.slab ** 2 * 4 + n * 2 * p * p * 4 + 3 * n * 4
+    ops = 3 * n * 2 * p * p           # subtract, divide, subtract per value
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_FLOPS * 1e3
+    return dict(
+        name="extract_normalize_patches", route="cuda",
+        source="moonsuperresolution_tpu_torch/csrc/patches.cu",
+        replaces="moonsuperresolution_tpu/ops/pallas/patches.py:119",
+        wrapper=tp.extract_normalize_patches,
+        max_abs_err=err,
+        ms=cuda_ms(lambda: tp.extract_normalize_patches(*args)),
+        plain_ms=cuda_ms(lambda: tp.extract_normalize_patches_plain(*args)),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        # No single PyTorch call computes grid extraction + min-max
+        # normalisation + validity.
+        library_ms=None)
+
+
+# ----------------------------------------------------------------- phase 3
+
+
+def synthetic_raster(h, w, seed):
+    """Smooth terrain with noise, an ortho shading of it, nodata on a band
+    and a hole."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    dem = (1500 + 300 * np.sin(x / 170) * np.cos(y / 230)
+           + 40 * np.sin(x / 37 + y / 53)
+           + rng.standard_normal((h, w)) * 2).astype(np.float32)
+    gy, gx = np.gradient(dem)
+    img = (128 + 60 * np.tanh(gx - gy) + rng.standard_normal((h, w)) * 3
+           ).astype(np.float32)
+    dem[:, w - w // 4 :] = NO_VALUE              # a band of nodata
+    img[h // 2 : h // 2 + h // 5, w // 8 : w // 8 + h // 5] = NO_VALUE  # a hole
+    return img, dem
+
+
+def run_map(eng, img, dem):
+    eng.img, eng.dem, eng.dem_shape = img.copy(), dem.copy(), dem.shape
+    eng.pad_inputs()
+    tiles = eng.generate_tile_list()
+    maps = (np.full(dem.shape, NO_VALUE, np.float32),
+            np.full(dem.shape, NO_VALUE, np.float32),
+            np.zeros(dem.shape, np.uint8))
+
+    def commit(px, py, out):
+        eng._commit_tile((px, py, out), *maps)
+
+    eng.run_tiles_serial(tiles, commit)
+    return tiles, maps
+
+
+def full_width_model(dev, seed):
+    import torch
+
+    from moonsuperresolution_tpu_torch.config import ModelConfig
+    from moonsuperresolution_tpu_torch.models.gaugan import GauGAN
+    from moonsuperresolution_tpu_torch.models.layers import init_params
+
+    cfg = ModelConfig(variant="gaugan", image_size=512, latent_dim=256,
+                      compute_dtype="bfloat16")
+    with torch.device(dev):
+        model = GauGAN(cfg)
+    init_params(model, torch.Generator(dev).manual_seed(seed))
+    return model.to(torch.bfloat16).eval()
+
+
+def flops_per_patch(model, dev, batch):
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    size = PROD["image_size"]
+    src = torch.zeros((batch, 2, size, size), dtype=torch.bfloat16,
+                      device=dev)
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        model(src, generator=torch.Generator(dev).manual_seed(0))
+    return fc.get_total_flops() / batch
+
+
+def valid_slabs(side, seed):
+    """Slabs without nodata: every patch of the tile goes to the model, as
+    in the interior tiles that make up most of a map."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.random((side, side), np.float32) * 50 + base
+                 for base in (100.0, 1500.0))
+
+
+def main_path(dev, seed, kernels):
+    import torch
+
+    from moonsuperresolution_tpu_torch.config import DSRConfig
+    from moonsuperresolution_tpu_torch.infer.engine import DEMSuperResolution
+
+    model = full_width_model(dev, seed)
+    batches = []
+
+    def counted(source, generator=None):
+        batches.append(source.shape[0])
+        return model(source, generator=generator)
+
+    eng = DEMSuperResolution(DSRConfig(seed=seed, **PROD), model=counted,
+                             device=dev)
+    t = PROD["tile_size"]
+    img, dem = synthetic_raster(t, t * N_TILES, seed)
+
+    # Warm-up (cuDNN plans, allocator) on one tile, outside the counts.
+    eng.img_padded, eng.dem_padded = valid_slabs(eng.geom.slab, seed)
+    eng.process_tile(0, 0)
+    torch.cuda.synchronize()
+
+    batches.clear()
+    for k in kernels:
+        k["wrapper"].launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tiles, (mean, std, good) = run_map(eng, img, dem)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for k in kernels:
+        k["launches"] = k["wrapper"].launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    check(len(tiles) == N_TILES, f"tile list {tiles}")
+    cover = good > 0
+    check(0.3 < cover.mean() < 0.9, f"coverage {cover.mean():.3f}")
+    check(np.isfinite(mean[cover]).all() and np.isfinite(std[cover]).all(),
+          "mean/std not finite where covered")
+    check((mean[~cover] == NO_VALUE).all() and (std[~cover] == NO_VALUE).all(),
+          "mean/std not no_value where uncovered")
+    check((std[cover] >= 0).all(), "negative std")
+    check(not cover[dem <= NO_VALUE].any(), "nodata DEM pixels covered")
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+
+    n_patches = len(tiles) * eng.geom.grid ** 2
+    model_patches = sum(batches)          # valid patches plus batch padding
+    fpp = flops_per_patch(model, dev, PROD["batch_size"])
+    return eng, img, dem, dict(
+        tiles=len(tiles), patches=n_patches, model_patches=model_patches,
+        tiles_s=dt, tile_s=dt / len(tiles), patches_per_s=n_patches / dt,
+        peak_mem_gib=peak / 2 ** 30,
+        params=sum(p.numel() for p in model.parameters()),
+        model_gflop_per_patch=fpp / 1e9,
+        model_tflop_per_s=model_patches * fpp / dt / 1e12,
+        coverage=float(cover.mean()))
+
+
+KERNEL_KINDS = (  # (category, substrings of the CUDA kernel's name)
+    ("conv/gemm", ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad")),
+    ("fold (col2im)", ("col2im", "im2col")),
+    ("patch prep (csrc/patches.cu)", ("patches_block_minmax",
+                                      "patches_normalize")),
+    ("reductions", ("reduce",)),
+    ("copies", ("memcpy", "memset", "copy")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def kernel_kind(name):
+    low = name.lower()
+    for kind, keys in KERNEL_KINDS:
+        if any(k.lower() in low for k in keys):
+            return kind
+    return "other"
+
+
+def full_tile(eng, fpp, seed, reps=3):
+    """An interior tile (all 529 patches valid): its time, and a profile of
+    one more run: device time by kind of kernel, and the card's idle share
+    of the tile's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.img_padded, eng.dem_padded = valid_slabs(eng.geom.slab, seed)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        eng.process_tile(0, 0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        eng.process_tile(0, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kind, rows = {}, []
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kind = kernel_kind(ev.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+            rows.append((us / 1e3, ev.count, kind, ev.key))
+    busy = sum(by_kind.values())
+    print("[profile] one interior tile, top device kernels (ms, calls, kind):",
+          file=sys.stderr)
+    for ms, count, kind, key in sorted(rows, reverse=True)[:20]:
+        print(f"[profile] {ms:10.3f} {count:6d}  {kind:28s} {key[:110]}",
+              file=sys.stderr)
+    n = eng.geom.grid ** 2
+    tile_s = sum(times) / len(times)
+    return dict(
+        full_tile_s=tile_s, full_tile_s_runs=times,
+        full_tile_patches_per_s=n / tile_s,
+        full_tile_model_tflop_per_s=n * fpp / tile_s / 1e12,
+        full_tile_bf16_peak_share=n * fpp / tile_s / H100_BF16_FLOPS,
+        profiled_tile_s=wall, device_busy_ms=busy,
+        device_idle_share=max(0.0, 1 - busy / 1e3 / wall),
+        device_ms_by_kind=dict(sorted(by_kind.items(),
+                                      key=lambda kv: -kv[1])))
+
+
+# ----------------------------------------------------------------- phase 4
+
+
+def identity_check(dev, img, dem):
+    """The reference's dry run: the identity model returns the low-res DEM,
+    so the blended mean is the DEM wherever a valid patch covers it, and
+    the spread is rounding noise.  Bound: 32 float32 ulps of the elevation
+    (4e-6 relative), for a normalise / denormalise round trip and a
+    weighted fold of up to 49 generations."""
+    from moonsuperresolution_tpu_torch.config import DSRConfig
+    from moonsuperresolution_tpu_torch.infer.engine import DEMSuperResolution
+
+    eng = DEMSuperResolution(DSRConfig(**PROD), model=None, device=dev)
+    _, (mean, std, good) = run_map(eng, img, dem)
+    cover = good > 0
+    check(cover.any(), "identity: nothing covered")
+    bound = 4e-6 * np.abs(dem[cover])
+    err = np.abs(mean[cover] - dem[cover])
+    check((err <= bound).all(),
+          f"identity: mean differs from the DEM by up to {err.max()} m")
+    check((std[cover] <= bound).all(),
+          f"identity: std up to {std[cover].max()} m")
+    return dict(identity_max_err_m=float(err.max()),
+                identity_max_std_m=float(std[cover].max()))
+
+
+def small_model_check(dev, seed):
+    """One tile of a small float32 cnn_spade (image 64, stride 16, tile 128,
+    batch 4) on the card against the same tile on the CPU, TF32 off.
+    Bound: rtol 1e-4 / atol 1e-3 m, for convolutions summed in other orders
+    on DEMs of +-150 m."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.config import DSRConfig, ModelConfig
+    from moonsuperresolution_tpu_torch.infer.engine import DEMSuperResolution
+    from moonsuperresolution_tpu_torch.models.gaugan import GauGAN
+    from moonsuperresolution_tpu_torch.models.layers import init_params
+
+    cfg = ModelConfig(variant="cnn_spade", image_size=64, latent_dim=16,
+                      channel_plan=(64, 64, 32, 32, 16, 8), encoder_filters=8)
+    cpu_model = init_params(GauGAN(cfg), torch.Generator().manual_seed(seed))
+    card_model = GauGAN(cfg).to(dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    geom = dict(image_size=64, stride=16, tile_size=128, batch_size=4,
+                no_value=NO_VALUE, compute_dtype="float32")
+    rng = np.random.default_rng(seed)
+    img = (rng.standard_normal((224, 224)) * 30 + 128).astype(np.float32)
+    dem = (rng.standard_normal((224, 224)) * 40).astype(np.float32)
+    dem[60:140, 60:140] = NO_VALUE
+    outs = []
+    for model, d in ((cpu_model.eval(), "cpu"), (card_model.eval(), dev)):
+        eng = DEMSuperResolution(DSRConfig(**geom), model=model, device=d)
+        eng.img_padded, eng.dem_padded = img, dem
+        outs.append([a.cpu().numpy() for a in eng.process_tile(0, 0)])
+    (m0, s0, g0), (m1, s1, g1) = outs
+    check((g0 == g1).all() and 0 < (g0 > 0).mean() < 1,
+          "small model: coverage differs")
+    err = 0.0
+    for a, b in ((m1, m0), (s1, s0)):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-3)
+        err = max(err, float(np.abs(a - b).max()))
+    return dict(small_model_card_vs_cpu_max_err_m=err)
+
+
+# -------------------------------------------------------------------- main
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and the synthetic data")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        import moonsuperresolution_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e}); run "
+              "from the repository root", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    phase = "1 build"
+    try:
+        card = card_line()
+        print(f"card: {card}")
+        build_all()
+
+        phase = "2 kernels vs plain"
+        kernels = [patches_case(dev, args.seed)]
+        for k in kernels:
+            print(f"[kernel] {k['name']}: {k['ms']:.4f} ms, plain "
+                  f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+                  f"({k['bound_by']}), max abs err {k['max_abs_err']:.3g}")
+
+        phase = "3 main path"
+        eng, img, dem, stats = main_path(dev, args.seed, kernels)
+        print(f"[main path] full-width bf16 GauGAN, {stats['params']} "
+              f"params: {stats['tiles']} tiles in {stats['tiles_s']:.3f} s "
+              f"= {stats['tile_s']:.3f} s/tile, "
+              f"{stats['patches_per_s']:.2f} patches/s, peak memory "
+              f"{stats['peak_mem_gib']:.2f} GiB, "
+              f"{stats['model_patches']} patches through the model at "
+              f"{stats['model_gflop_per_patch']:.1f} GFLOP each = "
+              f"{stats['model_tflop_per_s']:.1f} TFLOP/s")
+        print(f"[main path] launches: "
+              + ", ".join(f"{k['name']}={k['launches']}" for k in kernels))
+
+        stats.update(full_tile(eng, stats["model_gflop_per_patch"] * 1e9,
+                               args.seed))
+        print(f"[full tile] all patches valid: {stats['full_tile_s']:.3f} s "
+              f"= {stats['full_tile_patches_per_s']:.2f} patches/s, model at "
+              f"{stats['full_tile_model_tflop_per_s']:.1f} TFLOP/s; card "
+              f"idle {100 * stats['device_idle_share']:.1f} % of the tile")
+        print("[full tile] device ms by kind: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in stats["device_ms_by_kind"].items()))
+        del eng
+
+        phase = "4 output checks"
+        stats.update(identity_check(dev, img, dem))
+        stats.update(small_model_check(dev, args.seed))
+    except Exception as e:  # any phase failing fails the run, with its trace
+        import traceback
+
+        traceback.print_exc()
+        print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
+        return 1
+
+    print(json.dumps({"card": card, "stats": stats}))
+    print(json.dumps({"kernels": [
+        {key: k[key] for key in ("name", "route", "source", "replaces",
+                                 "launches", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}
+        for k in kernels]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,253 @@
+"""Core layers of the SPADE model family as torch modules (counterpart of
+moonsuperresolution_tpu/models/layers.py).
+
+Tensors are NCHW.  Each module computes in its ``dtype`` and keeps its
+parameters in it (the model is cast as a whole); statistics are taken in
+float32 or ``stats_dtype`` and cast explicitly, as the JAX modules do, rather
+than under autocast.  Submodule and parameter names follow the JAX
+parameter tree, so ``utils/convert.py`` maps one onto the other by name.
+
+Where PyTorch's defaults differ from the reference:
+- InstanceNorm's epsilon is 1e-3 (torch's InstanceNorm2d: 1e-5) and
+  SPADE's 1e-5; neither keeps running statistics.
+- Strided convs pad as XLA's "SAME" does: for a 3x3 stride-2 conv on an
+  even size that is 0 before and 1 after, where ``padding=1`` would pad 1
+  on both sides (``same_pad``).
+- Initializers are glorot (Keras) rather than torch's Kaiming defaults.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from moonsuperresolution_tpu_torch.ops.resize import resize_nearest
+
+SPADE_EPSILON = 1e-5
+
+
+def glorot_uniform_(w: torch.Tensor, generator=None) -> torch.Tensor:
+    """flax ``glorot_uniform``: U(-l, l) with l = sqrt(6 / (fan_in +
+    fan_out)); fans count the receptive field, as flax's do."""
+    fan_in, fan_out = _fans(w)
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return w.uniform_(-limit, limit, generator=generator)
+
+
+def glorot_normal_(w: torch.Tensor, generator=None) -> torch.Tensor:
+    """flax ``glorot_normal``: a normal truncated at two standard deviations,
+    rescaled so that the truncated distribution has variance 2 / (fan_in +
+    fan_out)."""
+    fan_in, fan_out = _fans(w)
+    std = math.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return w.mul_(std)
+
+
+def _fans(w: torch.Tensor) -> tuple[int, int]:
+    # OIHW conv kernels or [out, in] dense kernels.
+    receptive = math.prod(w.shape[2:])
+    return w.shape[1] * receptive, w.shape[0] * receptive
+
+
+def same_pad(n: int, k: int, s: int) -> tuple[int, int]:
+    """(before, after) padding of XLA's "SAME" for size n, kernel k, stride
+    s."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_same(x: torch.Tensor, weight: torch.Tensor, bias=None,
+              stride: int = 1) -> torch.Tensor:
+    """2-D conv with XLA's "SAME" padding (asymmetric where XLA's is)."""
+    kh, kw = weight.shape[-2:]
+    top, bottom = same_pad(x.shape[-2], kh, stride)
+    left, right = same_pad(x.shape[-1], kw, stride)
+    if top == bottom and left == right:
+        return F.conv2d(x, weight, bias, stride, (top, left))
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias,
+                    stride)
+
+
+class Conv(nn.Conv2d):
+    """Conv2d with XLA "SAME" padding (flax ``nn.Conv(padding="SAME")``)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 bias: bool = True):
+        super().__init__(cin, cout, kernel, stride, bias=bias)
+
+    def forward(self, x):
+        return conv_same(x, self.weight, self.bias, self.stride[0])
+
+
+class InstanceNorm(nn.Module):
+    """Per-sample, per-channel spatial normalisation with learned scale and
+    offset: tfa InstanceNormalization semantics, epsilon 1e-3.  Moments are
+    single-pass in float32; in bf16 the normalisation itself runs in bf16
+    arithmetic, as the JAX module's does."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-3,
+                 dtype=torch.float32):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        x32 = x.to(torch.float32)
+        n = x.shape[2] * x.shape[3]
+        s1 = x32.sum((2, 3), keepdim=True)
+        s2 = (x32 * x32).sum((2, 3), keepdim=True)
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean * mean, min=0.0)
+        r = 1.0 / torch.sqrt(var + self.epsilon)
+        gamma = self.scale[None, :, None, None]
+        beta = self.bias[None, :, None, None]
+        if self.dtype == torch.bfloat16:
+            x_hat = (x - mean.to(self.dtype)) * r.to(self.dtype)
+            return x_hat * gamma.to(self.dtype) + beta.to(self.dtype)
+        x_hat = (x32 - mean) * r
+        return (x_hat * gamma + beta).to(self.dtype)
+
+
+def spade_moments(xs: torch.Tensor, stats: str = "batch"):
+    """Single-pass SPADE moments of ``xs`` (already in the stats dtype):
+    over (B, H, W) for "batch", the reference's batch-coupled tf.nn.moments,
+    or over (H, W) for "instance".  Sums accumulate in float32 and the
+    moments are float32, as the JAX ones-matmul reduction's are; the
+    variance is clamped at 0."""
+    dims = (0, 2, 3) if stats == "batch" else (2, 3)
+    n = math.prod(xs.shape[d] for d in dims)
+    s1 = xs.sum(dims, keepdim=True, dtype=torch.float32)
+    s2 = (xs * xs).sum(dims, keepdim=True, dtype=torch.float32)
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
+    return mean, var
+
+
+def spade_normalize(x: torch.Tensor, stats: str, stats_dtype) -> torch.Tensor:
+    xs = x.to(stats_dtype)
+    mean, var = spade_moments(xs, stats)
+    return (xs - mean) * (1.0 / torch.sqrt(var + SPADE_EPSILON))
+
+
+class SPADE(nn.Module):
+    """Spatially-adaptive denormalisation (reference: spade/models/spade.py).
+
+    The 2-channel conditioning map is resized to the feature resolution
+    (half-pixel nearest), passed through a shared 128-channel 3x3 ReLU conv
+    and projected to per-pixel gamma and beta.  The gamma and beta convs run
+    as one conv over their concatenated kernels; their parameters stay
+    separate (``conv_gamma``, ``conv_beta``), as in the JAX tree.
+    """
+
+    def __init__(self, filters: int, hidden: int = 128, stats: str = "batch",
+                 dtype=torch.float32, stats_dtype=torch.float32):
+        super().__init__()
+        self.filters = filters
+        self.stats = stats
+        self.dtype = dtype
+        self.stats_dtype = stats_dtype
+        self.conv = Conv(2, hidden, 3)
+        self.conv_gamma = Conv(hidden, filters, 3)
+        self.conv_beta = Conv(hidden, filters, 3)
+
+    def forward(self, x, mask, normalized=None):
+        mask = resize_nearest(mask, (x.shape[2], x.shape[3]))
+        h = F.relu(self.conv(mask.to(self.dtype)))
+        gb = F.conv2d(
+            h, torch.cat([self.conv_gamma.weight, self.conv_beta.weight]),
+            torch.cat([self.conv_gamma.bias, self.conv_beta.bias]),
+            padding=1)
+        gamma, beta = gb[:, : self.filters], gb[:, self.filters :]
+        if normalized is None:
+            normalized = spade_normalize(x, self.stats, self.stats_dtype)
+        return gamma * normalized.to(self.dtype) + beta
+
+
+class SpadeResidualBlock(nn.Module):
+    """SPADE residual block (reference: spade/models/blocks.py:9-38): two
+    SPADE -> LeakyReLU -> 3x3 conv passes, with a learned SPADE skip when the
+    channel count changes.  spade_1 and spade_3 both normalise the block
+    input and share one normalised tensor (``input_normalized``)."""
+
+    def __init__(self, in_filters: int, filters: int, alpha: float = 0.2,
+                 stats: str = "batch", dtype=torch.float32,
+                 stats_dtype=torch.float32):
+        super().__init__()
+        self.alpha = alpha
+        self.stats = stats
+        self.stats_dtype = stats_dtype
+        kw = dict(stats=stats, dtype=dtype, stats_dtype=stats_dtype)
+        self.spade_1 = SPADE(in_filters, **kw)
+        self.conv_1 = Conv(in_filters, filters, 3)
+        self.spade_2 = SPADE(filters, **kw)
+        self.conv_2 = Conv(filters, filters, 3)
+        if filters != in_filters:
+            self.spade_3 = SPADE(in_filters, **kw)
+            self.conv_3 = Conv(in_filters, filters, 3)
+        else:
+            self.spade_3 = self.conv_3 = None
+
+    def forward(self, x, mask, input_normalized=None):
+        if input_normalized is None:
+            input_normalized = spade_normalize(x, self.stats, self.stats_dtype)
+        a = self.alpha
+        h = self.spade_1(x, mask, normalized=input_normalized)
+        h = self.conv_1(F.leaky_relu(h, a))
+        h = self.spade_2(h, mask)
+        h = self.conv_2(F.leaky_relu(h, a))
+        if self.spade_3 is None:
+            return x + h
+        skip = self.spade_3(x, mask, normalized=input_normalized)
+        return self.conv_3(F.leaky_relu(skip, a)) + h
+
+
+class DownsampleBlock(nn.Module):
+    """Strided conv (no bias, glorot-normal init) + optional InstanceNorm +
+    LeakyReLU (reference: spade/models/blocks.py:41-68; its dropout is never
+    enabled by a caller and is not ported)."""
+
+    def __init__(self, cin: int, channels: int, kernel: int, strides: int = 2,
+                 apply_norm: bool = True, apply_activation: bool = True,
+                 alpha: float = 0.2, dtype=torch.float32):
+        super().__init__()
+        self.alpha = alpha
+        self.apply_activation = apply_activation
+        self.dtype = dtype
+        self.conv = Conv(cin, channels, kernel, strides, bias=False)
+        self.norm = InstanceNorm(channels, dtype=dtype) if apply_norm else None
+
+    def forward(self, x):
+        x = self.conv(x.to(self.dtype))
+        if self.norm is not None:
+            x = self.norm(x)
+        if self.apply_activation:
+            x = F.leaky_relu(x, self.alpha)
+        return x
+
+
+def init_params(model: nn.Module, generator=None) -> nn.Module:
+    """Initialise ``model`` as the JAX modules initialise theirs: glorot
+    normal for the downsample convs, glorot uniform for every other conv and
+    dense kernel, zero biases, unit InstanceNorm scales.  ``generator``
+    makes it reproducible; it must live on the parameters' device."""
+    normal = {id(m.conv.weight) for m in model.modules()
+              if isinstance(m, DownsampleBlock)}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if id(p) in normal:
+                glorot_normal_(p, generator)
+            elif name.endswith("weight"):
+                glorot_uniform_(p, generator)
+            elif name.endswith("scale"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+    return model

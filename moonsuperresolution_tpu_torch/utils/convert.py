@@ -1,0 +1,72 @@
+"""Carry the JAX package's weights across to the port.
+
+Input: the flax parameter tree of ``GauGANTrainer.init(...).params`` as
+numpy arrays (``jax.device_get`` of it), or a flat ``.npz`` whose keys are
+the tree paths joined with "/" (``save_npz`` writes one).  The port's
+modules carry the JAX names, so the mapping is by name:
+
+- conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in], both
+  renamed ``kernel`` -> ``weight``;
+- ``bias`` and InstanceNorm ``scale`` unchanged;
+- SPADE's ``conv_gamma`` and ``conv_beta`` stay two parameters.
+
+The Dense layers' NHWC flatten and reshape are done in the forward pass
+(models/networks.py), so no Dense weight is permuted here.  A top-level
+``discriminator`` subtree is skipped: the port has no training yet.
+"""
+
+from __future__ import annotations
+
+import os
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+SKIPPED = ("discriminator",)
+
+
+def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested mapping -> {"a/b/c": array}; a flat "/"-keyed dict passes
+    through unchanged."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            flat.update(flatten_tree(v, key))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def save_npz(path: str, tree) -> None:
+    np.savez(path, **flatten_tree(tree))
+
+
+def convert_params(params) -> dict[str, torch.Tensor]:
+    """JAX parameter tree (nested, flat, or a path to an ``.npz``) -> the
+    port's float32 state dict."""
+    if isinstance(params, (str, os.PathLike)):
+        with np.load(params) as f:
+            params = {k: f[k] for k in f.files}
+    state = {}
+    for key, v in flatten_tree(params).items():
+        *path, leaf = key.split("/")
+        if path and path[0] in SKIPPED:
+            continue
+        if leaf == "kernel":
+            v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+            leaf = "weight"
+        elif leaf not in ("bias", "scale"):
+            raise ValueError(f"unknown parameter {key}")
+        state[".".join(path + [leaf])] = torch.from_numpy(
+            np.ascontiguousarray(v, dtype=np.float32))
+    return state
+
+
+def load_params(model: nn.Module, params) -> nn.Module:
+    """Load converted weights with ``strict=True``: every parameter of the
+    model is filled and no converted key is left over."""
+    model.load_state_dict(convert_params(params), strict=True)
+    return model
