@@ -24,8 +24,25 @@ prints no result.  Phases; any failure exits non-zero:
      no_value elsewhere; the identity model over the same raster gives the
      DEM back where covered; a small float32 model's tile on the card
      agrees with the same tile on the CPU.
+  5. Full map, through the port's CLIs (``main(argv)`` in this process) on
+     a synthetic 2048 x 3072 GeoTIFF pair (6 production tiles) with small
+     fillable holes, a large hole and a nodata band:
+     a. phase 3's seeded bf16 GauGAN, exported with ``export_params``,
+        over the whole map in RAM: georeferencing kept, mean and std finite
+        where covered and no_value elsewhere, std >= 0, no nodata pixel
+        covered, the small holes filled and covered; preprocess, tile and
+        save times and peak device memory;
+     b. the identity model in RAM against ``--streaming``: identical
+        GeoTIFF files;
+     c. the identity model in 2 shards merged by the merge CLI, in RAM and
+        streaming, against the whole runs of b: identical GeoTIFF files;
+     d. the preprocessing's area /4 and cubic-up resizes of the map's DEM
+        on the card against the CPU: equal bit for bit.
+     Each map run is driven with the launch counters set to 0 and read
+     after; the kernel must have launched in every one.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (launches summed over
+phase 3's tile loop and every map run); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -34,8 +51,10 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -267,7 +286,7 @@ def main_path(dev, seed, kernels):
     n_patches = len(tiles) * eng.geom.grid ** 2
     model_patches = sum(batches)          # valid patches plus batch padding
     fpp = flops_per_patch(model, dev, PROD["batch_size"])
-    return eng, img, dem, dict(
+    return eng, model, img, dem, dict(
         tiles=len(tiles), patches=n_patches, model_patches=model_patches,
         tiles_s=dt, tile_s=dt / len(tiles), patches_per_s=n_patches / dt,
         peak_mem_gib=peak / 2 ** 30,
@@ -406,6 +425,197 @@ def small_model_check(dev, seed):
     return dict(small_model_card_vs_cpu_max_err_m=err)
 
 
+# ----------------------------------------------------------------- phase 5
+
+MAP_HW = (2048, 3072)                # 2 x 3 production tiles; both % 4 == 0
+MAP_GT = (1_000_000.0, 5.0, 0.0, 2_000_000.0, 0.0, -5.0)
+MAP_PROJ = ('PROJCS["Moon2000_Equirectangular",GEOGCS["GCS_Moon_2000",'
+            'DATUM["D_Moon_2000",SPHEROID["Moon_2000_IAU_IAG",1737400.0,0.0]]'
+            ',PRIMEM["Reference_Meridian",0.0],UNIT["Degree",'
+            '0.0174532925199433]],PROJECTION["Equirectangular"],'
+            'UNIT["Meter",1.0]]')
+# Small holes inside the fill sweeps' interiors (the sweeps leave the
+# raster's outer 128 px as they are).  The ortho fill takes blobs under 8 px,
+# so its holes are 2 x 2; the DEM's 3 x 3 holes become 1-4 px holes at
+# quarter resolution, where the fill takes blobs under 24 px.
+ORTHO_HOLES = ((400, 1200), (600, 1800), (1700, 2000))
+DEM_HOLES = ((300, 1500), (800, 2000), (1600, 1000))
+
+
+def synthetic_map(td, seed):
+    """Writes run-DRG.tif and run-DEM.tif with the port's writer; returns
+    the masks of the nodata that must stay uncovered and of the small holes
+    that must be filled."""
+    from moonsuperresolution_tpu_torch.geo.tiff import write_geotiff
+
+    h, w = MAP_HW
+    img, dem = synthetic_raster(h, w, seed)   # a DEM band and a large hole
+    stays = (img <= NO_VALUE) | (dem <= NO_VALUE)
+    filled = np.zeros(MAP_HW, bool)
+    for (y, x), n, plane in [(c, 2, img) for c in ORTHO_HOLES] + \
+            [(c, 3, dem) for c in DEM_HOLES]:
+        plane[y : y + n, x : x + n] = NO_VALUE
+        filled[y : y + n, x : x + n] = True
+    check(not (stays & filled).any(), "small holes overlap the large ones")
+    for name, plane in (("run-DRG.tif", img), ("run-DEM.tif", dem)):
+        write_geotiff(os.path.join(td, name), plane, MAP_GT, MAP_PROJ,
+                      NO_VALUE)
+    return stays, filled
+
+
+def run_cli(kernels, module, argv):
+    """One CLI run with the launch counters set to 0 just before; returns
+    its result and the launches of each kernel in it, which also add to
+    each kernel's total."""
+    for k in kernels:
+        k["wrapper"].launches = 0
+    out = module.main(argv)
+    launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    for k in kernels:
+        k["launches"] += launches[k["name"]]
+    return out, launches
+
+
+def read_triple(path, name):
+    from moonsuperresolution_tpu_torch.geo.tiff import read_geotiff
+
+    out = {}
+    for k in ("mean", "std", "good"):
+        g = read_geotiff(os.path.join(path, f"{name}_{k}.tiff"))
+        check(g.geo_transform == MAP_GT and g.projection == MAP_PROJ
+              and g.nodata == NO_VALUE,
+              f"{name}_{k}.tiff lost its georeferencing")
+        out[k] = g.data.squeeze()
+    return out
+
+
+def same_files(a, b, what):
+    for k in ("mean", "std", "good"):
+        with open(os.path.join(a, f"map_{k}.tiff"), "rb") as fa, \
+                open(os.path.join(b, f"map_{k}.tiff"), "rb") as fb:
+            check(fa.read() == fb.read(), f"{what}: map_{k}.tiff differs")
+
+
+def resizes_card_vs_cpu(dev, dem_path):
+    """The preprocessing's resizes of the map's DEM on the card against the
+    same functions on the CPU: area /4 (also of a crop whose boxes are
+    clipped at the far edges), area /4 again, and the cubic up to the full
+    raster in the engine's row bands.  Each output element is a fixed
+    sequence of IEEE float32 operations, so the two must agree bit for bit,
+    NaN masks included.  Returns the largest difference of each."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.geo.tiff import read_geotiff
+    from moonsuperresolution_tpu_torch.infer.engine import DEMSuperResolution
+    from moonsuperresolution_tpu_torch.ops.resize import (
+        area_downscale4,
+        resize_cubic,
+    )
+
+    dem = torch.from_numpy(
+        read_geotiff(dem_path).data.squeeze().astype(np.float32))
+    dem = torch.where(dem <= NO_VALUE, torch.nan, dem)
+    rows = DEMSuperResolution.CUBIC_BAND_ROWS
+    outs = []
+    for where in ("cpu", dev):
+        x = dem.to(where)
+        q = area_downscale4(x)
+        s16 = area_downscale4(q)
+        up = torch.cat([resize_cubic(s16, MAP_HW, a, min(MAP_HW[0], a + rows))
+                        for a in range(0, MAP_HW[0], rows)])
+        clipped = area_downscale4(x[:2047, :3070])
+        outs.append([t.cpu().numpy() for t in (q, clipped, s16, up)])
+    errs = {}
+    for name, a, b in zip(("area /4", "area /4 clipped", "area /16",
+                           "cubic up"), *outs):
+        check(a.shape == b.shape
+              and np.array_equal(np.isnan(a), np.isnan(b)),
+              f"{name}: shape or NaN mask differs, card against CPU")
+        ok = ~np.isnan(a)
+        errs[name] = float(np.abs(a[ok] - b[ok]).max())
+        check(errs[name] == 0, f"{name}: card differs from CPU by "
+              f"{errs[name]}")
+    return errs
+
+
+def full_map(dev, model, kernels, seed):
+    import torch
+
+    from moonsuperresolution_tpu_torch.cli import merge_maps
+    from moonsuperresolution_tpu_torch.cli import process_full_tiles as cli
+    from moonsuperresolution_tpu_torch.utils.convert import (
+        export_params,
+        save_npz,
+    )
+
+    stats, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_map_") as td:
+        stays, filled = synthetic_map(td, seed + 1)
+        geom = ["--source_folder_path", td]
+        for key in ("image_size", "stride", "tile_size", "batch_size"):
+            geom += [f"--{key}", str(PROD[key])]
+
+        # a. the real model through the real CLI
+        npz = os.path.join(td, "gaugan.npz")
+        save_npz(npz, export_params(model))
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = os.path.join(td, "model")
+        res, launches["model in RAM"] = run_cli(kernels, cli, geom + [
+            "--map_name", "map", "--save_path", out, "--model_path", npz,
+            "--model_kind", "gaugan"])
+        torch.cuda.synchronize()
+        stats.update({f"map_{k}": v for k, v in res.items()})
+        stats["map_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        os.remove(npz)
+        m = read_triple(out, "map")
+        cover = m["good"] > 0
+        check(m["good"].shape == MAP_HW and res["tiles"] == 6,
+              f"map shape {m['good'].shape}, {res['tiles']} tiles")
+        check(0.3 < cover.mean() < 0.9, f"map coverage {cover.mean():.3f}")
+        check(np.isfinite(m["mean"][cover]).all()
+              and np.isfinite(m["std"][cover]).all(),
+              "map: mean/std not finite where covered")
+        check((m["mean"][~cover] == NO_VALUE).all()
+              and (m["std"][~cover] == NO_VALUE).all(),
+              "map: mean/std not no_value where uncovered")
+        check((m["std"][cover] >= 0).all(), "map: negative std")
+        check(not cover[stays].any(), "map: nodata pixels covered")
+        check(cover[filled].all(), "map: small holes not filled and covered")
+        stats["map_coverage"] = float(cover.mean())
+
+        # b. identity model, in RAM against streaming: the same files
+        ident = geom + ["--map_name", "map"]
+        for mode, flags in (("ram", []), ("st", ["--streaming"])):
+            _, launches[f"identity {mode}"] = run_cli(
+                kernels, cli, ident + ["--save_path",
+                                       os.path.join(td, mode)] + flags)
+        a = read_triple(os.path.join(td, "ram"), "map")
+        check((a["good"] > 0).mean() > 0.3, "identity map: little coverage")
+        same_files(os.path.join(td, "ram"), os.path.join(td, "st"),
+                   "streaming against in RAM")
+
+        # c. identity model, 2 shards merged against the whole runs
+        for mode, flags in (("ram", []), ("st", ["--streaming"])):
+            sh = os.path.join(td, f"{mode}_shards")
+            for i in range(2):
+                _, launches[f"identity {mode} shard {i}"] = run_cli(
+                    kernels, cli, ident + ["--save_path", sh,
+                                           "--shard_index", str(i),
+                                           "--num_shards", "2"] + flags)
+            merge_maps.main(["--save_path", sh, "--map_name", "map",
+                             "--num_shards", "2"] + flags)
+            same_files(os.path.join(td, mode), sh, f"{mode} shards")
+
+        # d. the resizes of the map's preprocessing, card against CPU
+        stats["resize_card_vs_cpu_max_abs_err"] = resizes_card_vs_cpu(
+            dev, os.path.join(td, "run-DEM.tif"))
+    for path, counts in launches.items():
+        for name, n in counts.items():
+            check(n > 0, f"{name} never launched in the {path} map run")
+    stats["map_launches"] = launches
+    return stats
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -441,7 +651,7 @@ def main(argv=None):
                   f"({k['bound_by']}), max abs err {k['max_abs_err']:.3g}")
 
         phase = "3 main path"
-        eng, img, dem, stats = main_path(dev, args.seed, kernels)
+        eng, model, img, dem, stats = main_path(dev, args.seed, kernels)
         print(f"[main path] full-width bf16 GauGAN, {stats['params']} "
               f"params: {stats['tiles']} tiles in {stats['tiles_s']:.3f} s "
               f"= {stats['tile_s']:.3f} s/tile, "
@@ -466,6 +676,22 @@ def main(argv=None):
         phase = "4 output checks"
         stats.update(identity_check(dev, img, dem))
         stats.update(small_model_check(dev, args.seed))
+
+        phase = "5 full map"
+        stats.update(full_map(dev, model, kernels, args.seed))
+        del model
+        print(f"[full map] bf16 GauGAN over {MAP_HW[0]} x {MAP_HW[1]} px, "
+              f"{stats['map_tiles']} tiles: preprocess_s "
+              f"{stats['map_preprocess_s']:.3f}, tiles_s "
+              f"{stats['map_tiles_s']:.3f}, save_s {stats['map_save_s']:.3f}, "
+              f"{stats['map_patches_per_s']:.2f} patches/s, peak memory "
+              f"{stats['map_peak_mem_gib']:.2f} GiB")
+        print("[full map] launches: " + ", ".join(
+            f"{path} {sum(c.values())}"
+            for path, c in stats["map_launches"].items()))
+        print("[full map] resizes, card against CPU, max abs err: " + ", ".join(
+            f"{k} {v}"
+            for k, v in stats["resize_card_vs_cpu_max_abs_err"].items()))
     except Exception as e:  # any phase failing fails the run, with its trace
         import traceback
 

@@ -1,13 +1,19 @@
-"""Build the package's CUDA kernels at first use.
+"""Build the package's native code at first use.
 
-Each ``csrc/<name>.cu`` is compiled by nvcc for Hopper (``sm_90a``) into
-``_build/lib<name>.so``: a shared library with a plain C interface that the
-op modules load with ctypes.  No PyTorch header is included, so a build
-takes seconds.  A library is rebuilt when its source is newer; the build
-writes to a temporary name and renames it, so concurrent builds never load
-a half-written file.  ``--use_fast_math`` is deliberately absent: the
-normalisations divide, and must divide as IEEE does to match their plain
-PyTorch versions.
+Each ``csrc/<name>.cu`` is a CUDA kernel, compiled by nvcc for Hopper
+(``sm_90a``) into ``_build/lib<name>.so``: a shared library with a plain C
+interface that the op modules load with ctypes.  No PyTorch header is
+included, so a build takes seconds.  ``--use_fast_math`` is deliberately
+absent: the normalisations divide, and must divide as IEEE does to match
+their plain PyTorch versions.
+
+Each ``csrc/<name>.cpp`` is host code (the LZW codec of ``geo/lzw.py``),
+compiled by g++ the same way (``build_host``).  ``sources()`` lists only the
+CUDA kernels.
+
+A library is rebuilt when its source is newer; a build writes to a
+temporary name and renames it, so concurrent builds never load a
+half-written file.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -49,29 +56,53 @@ def nvcc() -> str:
     return found
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library is up to date.  Returns
-    the compiler's output (register and shared-memory use per kernel), or
-    "" when nothing was built."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+def gxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found is None:
+        raise RuntimeError("g++ not found: set CXX to a C++ compiler")
+    return found
+
+
+def _compile(src: str, name: str, cmd: list[str]) -> str:
     out = lib_path(name)
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
+    proc = subprocess.run([*cmd, "-o", tmp, src], capture_output=True,
+                          text=True)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"{cmd[0]} failed on {src}:\n"
+                           f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return proc.stdout + proc.stderr
 
 
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library is up to date.  Returns
+    the compiler's output (register and shared-memory use per kernel), or
+    "" when nothing was built."""
+    return _compile(os.path.join(CSRC_DIR, f"{name}.cu"), name,
+                    [nvcc(), *NVCC_FLAGS])
+
+
+def build_host(name: str) -> str:
+    """Compile the host library ``csrc/<name>.cpp`` with g++ unless it is
+    up to date; returns the compiler's output, or "" when nothing was
+    built."""
+    return _compile(os.path.join(CSRC_DIR, f"{name}.cpp"), name,
+                    [gxx(), *GXX_FLAGS])
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built on first use."""
+    """The library ``name`` (a ``.cu`` kernel or a ``.cpp`` host library),
+    built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build(name)
+            if os.path.exists(os.path.join(CSRC_DIR, f"{name}.cu")):
+                build(name)
+            else:
+                build_host(name)
             lib = _libs[name] = ctypes.CDLL(lib_path(name))
         return lib

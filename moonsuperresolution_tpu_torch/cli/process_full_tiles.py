@@ -1,0 +1,103 @@
+"""Large-raster super-resolution CLI of the port (counterpart of
+moonsuperresolution_tpu/cli/process_full_tiles.py).
+
+    python -m moonsuperresolution_tpu_torch.cli.process_full_tiles \\
+        --source_folder_path maps/ --map_name site1 --save_path out/ \\
+        --model_path weights.npz --image_size 512 --stride 64 \\
+        --batch_size 16
+
+Reads ``<source>/run-DRG.tif`` and ``<source>/run-DEM.tif`` and writes
+``<save_path>/<map>_{mean,std,good}.tiff``.  ``--model_path`` is an ``.npz``
+of the JAX parameter tree (``scripts/export_params_npz.py`` makes one from
+an Orbax checkpoint); leave it unset for the identity-model pipeline check.
+Runs on the first CUDA card; ``--device cpu`` runs on the CPU.
+``--streaming`` bounds host memory for rasters larger than RAM;
+``--shard_index/--num_shards`` split the map across jobs, merged afterwards
+by ``moonsuperresolution_tpu_torch.cli.merge_maps``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def parse(argv=None):
+    p = argparse.ArgumentParser("DEM super-resolution over large rasters")
+    p.add_argument("--source_folder_path", type=str, required=True)
+    p.add_argument("--map_name", type=str, required=True)
+    p.add_argument("--save_path", type=str, required=True)
+    p.add_argument("--ortho_image_name", type=str, default="run-DRG.tif")
+    p.add_argument("--dem_name", type=str, default="run-DEM.tif")
+    p.add_argument("--model_path", type=str, default=None,
+                   help=".npz of the JAX parameter tree; omit for identity "
+                        "processing")
+    p.add_argument("--model_kind", type=str, default="gaugan",
+                   choices=["gaugan", "cnn_spade"])
+    p.add_argument("--image_size", type=int, default=256)
+    p.add_argument("--stride", type=int, default=32,
+                   help="window displacement; image_size/8 recommended")
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--tile_size", type=int, default=1024)
+    p.add_argument("--no_value", type=float, default=-32768.0)
+    p.add_argument("--upsample_factor", type=float, default=1.0,
+                   choices=[1.0],
+                   help="accepted for the JAX CLI's command lines; the map "
+                        "keeps the DEM's resolution")
+    p.add_argument("--shard_index", type=int, default=0)
+    p.add_argument("--num_shards", type=int, default=1)
+    p.add_argument("--compute_dtype", type=str, default="bfloat16")
+    p.add_argument("--quantize", type=str, default="none", choices=["none"],
+                   help="the int8 generator is not ported yet")
+    p.add_argument("--fill_method", type=str, default="fast",
+                   choices=["fast", "reference"],
+                   help="nodata interpolation: 'reference' is the exact "
+                        "whole-tile cubic griddata (slow); 'fast' restricts "
+                        "to hole neighbourhoods")
+    p.add_argument("--fill_workers", type=int, default=0,
+                   help="process pool for hole filling (0 = one per CPU)")
+    p.add_argument("--streaming", action="store_true",
+                   help="bounded-memory row-band pipeline for rasters too "
+                        "large for host RAM (dims must divide by 4)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cpu' runs without a card")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Run one map (or one shard of it); prints and returns the stats."""
+    from moonsuperresolution_tpu_torch.config import DSRConfig
+    from moonsuperresolution_tpu_torch.device import resolve_device
+    from moonsuperresolution_tpu_torch.infer.engine import (
+        DEMSuperResolution,
+        load_model_fn,
+    )
+
+    a = parse(argv)
+    device = resolve_device(a.device)
+    cfg = DSRConfig(
+        image_size=a.image_size, stride=a.stride, batch_size=a.batch_size,
+        tile_size=a.tile_size, no_value=a.no_value, map_name=a.map_name,
+        save_path=a.save_path, source_folder_path=a.source_folder_path,
+        ortho_image_name=a.ortho_image_name, dem_name=a.dem_name,
+        model_path=a.model_path, model_kind=a.model_kind,
+        compute_dtype=a.compute_dtype, quantize=a.quantize,
+        fill_workers=a.fill_workers,
+    )
+    model = load_model_fn(a.model_path, a.model_kind, a.image_size,
+                          compute_dtype=a.compute_dtype, quantize=a.quantize,
+                          device=device)
+    engine = DEMSuperResolution(cfg, model=model, device=device)
+    if a.streaming:
+        stats = engine.process_map_streaming(fill_method=a.fill_method,
+                                             shard_index=a.shard_index,
+                                             num_shards=a.num_shards)
+    else:
+        stats = engine.process_map(shard_index=a.shard_index,
+                                   num_shards=a.num_shards,
+                                   fill_method=a.fill_method)
+    print(stats)
+    return stats
+
+
+if __name__ == "__main__":
+    main()

@@ -9,8 +9,9 @@ SPADE gamma/beta convs as one conv); and the TPU-only inference knobs
 kernel on the card), ``scan_unroll`` (PyTorch runs the chunk loop eagerly)
 and ``quantize`` values other than "none" (the int8 generator is a later
 slice).  ``pack_valid`` is always on: the port packs valid patches as the
-reference batches them.  ``fill_workers``, ``save_tiles`` and
-``upsample_factor`` come with the raster I/O of a later slice.
+reference batches them.  ``upsample_factor`` (read by nothing in the JAX
+package either) and ``save_tiles`` are left out too: a sharded in-RAM run
+writes per-tile dumps, a whole run does not.
 """
 
 from __future__ import annotations
@@ -56,5 +57,7 @@ class DSRConfig:
     model_kind: str = "gaugan"  # gaugan | gaugan_no_kl | cnn_spade | identity
     compute_dtype: str = "bfloat16"
     quantize: str = "none"  # only "none" is ported
+    # Process-pool size for nodata hole filling (0 = one per CPU).
+    fill_workers: int = 0
     # Seed of the per-tile latent draws (the Monte-Carlo uncertainty source).
     seed: int = 0

@@ -1,5 +1,13 @@
-"""Large-raster DEM super-resolution engine: the per-tile program and the
-tile loop (counterpart of moonsuperresolution_tpu/infer/engine.py).
+"""Large-raster DEM super-resolution engine: the full-map pipeline, the
+tile loop and the per-tile program (counterpart of
+moonsuperresolution_tpu/infer/engine.py).
+
+``process_map`` runs a whole map: read the ortho and DEM GeoTIFF pair, fill
+small nodata holes, synthesise the /16 low-res conditioning DEM, run every
+tile, and write the mean, std and good LZW GeoTIFFs with the georeferencing
+kept.  ``process_map_streaming`` (infer/streaming.py) does the same in
+bounded host memory, and ``shard_index / num_shards`` spread one map over
+several jobs (merged by infer/merge.py).
 
 The raster is cut into ``tile_size`` tiles with an ``image_size - stride``
 halo.  For each tile, everything between the slab and the blended mean,
@@ -13,15 +21,20 @@ The overlapping generations are the Monte-Carlo uncertainty estimate of the
 reference: std = sqrt(S / w_sum) over ~64 generations per pixel at stride =
 image_size / 8 (process_full_tiles.py:386-414).
 
-Not ported yet: GeoTIFF reading and writing, nodata filling and the /16
-low-res DEM synthesis (``load_images``, ``preprocess``, ``save_gtiff``,
-``process_map``), per-tile dumps, and the int8 generator.
+Host work that stays on the host: the nodata fill (scipy, infer/fill.py)
+and the GeoTIFF codec.  The /16 synthesis's resizes run on the engine's
+device (ops/resize.py).
+
+Not ported yet: the int8 generator, the multi-device tile-parallel mode
+(``process_tile_group``) and the tile profile (``profile_dir``).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import os
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -29,12 +42,18 @@ import torch
 
 from moonsuperresolution_tpu_torch.config import DSRConfig, ModelConfig
 from moonsuperresolution_tpu_torch.device import resolve_device
+from moonsuperresolution_tpu_torch.geo.tiff import TiffReader, write_geotiff
+from moonsuperresolution_tpu_torch.infer.fill import fill_nodata
 from moonsuperresolution_tpu_torch.models.gaugan import DTYPES, GauGAN
 from moonsuperresolution_tpu_torch.ops.blend import (
     fold_weighted_moments,
     gaussian_blend_kernel,
 )
 from moonsuperresolution_tpu_torch.ops.patches import extract_normalize_patches
+from moonsuperresolution_tpu_torch.ops.resize import (
+    area_downscale4,
+    resize_cubic,
+)
 from moonsuperresolution_tpu_torch.utils.convert import load_params
 
 
@@ -90,6 +109,9 @@ class DEMSuperResolution:
     compute dtype to [B, 1, I, I] or [B, I, I]; None is the identity model.
     """
 
+    # Output rows per device pass of the preprocess's cubic upsample.
+    CUBIC_BAND_ROWS = 2048
+
     def __init__(self, config: DSRConfig, model: Optional[Callable] = None,
                  device=None):
         self.cfg = config
@@ -103,6 +125,58 @@ class DEMSuperResolution:
             gaussian_blend_kernel(config.image_size)).to(self.device)
 
     # ------------------------------------------------------------ rasters
+
+    def load_images(self) -> None:
+        """Read the DEM + ortho rasters and their geo metadata
+        (reference: process_full_tiles.py:158-182)."""
+        img_path = os.path.join(self.cfg.source_folder_path,
+                                self.cfg.ortho_image_name)
+        dem_path = os.path.join(self.cfg.source_folder_path, self.cfg.dem_name)
+        for p in (img_path, dem_path):
+            if not os.path.exists(p):
+                raise ValueError(f"input raster not found: {p}")
+        with TiffReader(img_path) as r:
+            self.img = r.read().astype(np.float32).squeeze()
+        with TiffReader(dem_path) as r:
+            self.dem = r.read().astype(np.float32).squeeze()
+            self.geo_transform = r.geo_transform
+            self.projection = r.projection
+        self.dem_shape = self.dem.shape
+
+    def _nodata_to_nan(self, plane: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(plane).to(self.device)
+        return torch.where(t <= self.no_value, torch.nan, t)
+
+    def _nan_to_nodata(self, t: torch.Tensor) -> np.ndarray:
+        return torch.where(t.isnan(), self.no_value, t).cpu().numpy()
+
+    def preprocess(self, fill_method: str = "fast") -> None:
+        """Fill small nodata holes and synthesize the /16 low-res
+        conditioning DEM (reference: process_full_tiles.py:226-244).
+
+        The hole fills run on the host (a process pool over holed tiles);
+        the area /4, area /4 and cubic-up resizes run on the engine's
+        device with cv2's semantics (ops/resize.py), the cubic up in bands
+        of ``CUBIC_BAND_ROWS`` rows, the same function the streaming engine
+        calls per tile-row band.  The planes come back to the host for
+        ``pad_inputs``; the device copies are dropped.
+        """
+        nv = self.no_value
+        workers = self.cfg.fill_workers
+        self.img = fill_nodata(self.img, nv, tile_size=1024, border=128,
+                               max_fill_area=8, method=fill_method,
+                               workers=workers)
+        quarter = self._nan_to_nodata(
+            area_downscale4(self._nodata_to_nan(self.dem)))
+        quarter = fill_nodata(quarter, nv, tile_size=256, border=32,
+                              max_fill_area=24, method=fill_method,
+                              workers=workers)
+        s16 = area_downscale4(self._nodata_to_nan(quarter))
+        h = self.dem_shape[0]
+        for a in range(0, h, self.CUBIC_BAND_ROWS):
+            b = min(h, a + self.CUBIC_BAND_ROWS)
+            self.dem[a:b] = self._nan_to_nodata(
+                resize_cubic(s16, self.dem_shape, a, b))
 
     def pad_inputs(self) -> None:
         """Pad to tile_size multiples plus the tile halo, filled with
@@ -207,17 +281,24 @@ class DEMSuperResolution:
                     for a in self._slabs(px, py))
         return self.tile_program(img, dem, self.tile_generator(px, py))
 
-    def run_tiles_serial(self, tiles, commit) -> None:
+    def run_tiles_serial(self, tiles, commit, progress: bool = False,
+                         slab_provider=None) -> None:
         """Tile loop with staged uploads.  While the card runs tile i, a
         worker thread slices tile i+1's slabs, pins them and copies them up
         on a side CUDA stream; ``commit(px, py, out)`` runs on another
-        thread, one tile behind."""
+        thread, one tile behind.
+
+        ``slab_provider(px, py) -> (img_slab, dem_slab)`` overrides the
+        slicing of the padded rasters: the streaming engine cuts slabs out
+        of row bands (column slices, made contiguous here before
+        pinning)."""
         cuda = self.device.type == "cuda"
         side = torch.cuda.Stream(self.device) if cuda else None
+        slabs = slab_provider or self._slabs
 
         def stage(px, py):
             host = [torch.from_numpy(np.ascontiguousarray(a, np.float32))
-                    for a in self._slabs(px, py)]
+                    for a in slabs(px, py)]
             if not cuda:
                 return host
             with torch.cuda.stream(side):
@@ -244,20 +325,138 @@ class DEMSuperResolution:
                         commit_fut.result()
                     commit_fut = down_pool.submit(commit, *pending)
                 pending = (px, py, out)
+                if progress:
+                    print(f"tile {idx + 1}/{len(tiles)} at ({px},{py})",
+                          flush=True)
                 staged = nxt.result() if nxt is not None else None
             if commit_fut is not None:
                 commit_fut.result()
         if pending is not None:
             commit(*pending)
 
-    def _commit_tile(self, pending, mean_map, std_map, good_map) -> None:
+    # ------------------------------------------------------------ outputs
+
+    def save_tile(self, mean, std, good, name: str) -> None:
+        """Per-tile dumps in the reference's layout
+        (process_full_tiles.py:416-429): tile_<x>_<y>/tile_<x>_<y>_{mean,std,
+        correct}.tif.  Sharded runs write them for infer/merge.py."""
+        tile_dir = os.path.join(self.cfg.save_path, f"tile_{name}")
+        os.makedirs(tile_dir, exist_ok=True)
+        for plane, kind in ((mean, "mean"), (std, "std"), (good, "correct")):
+            write_geotiff(os.path.join(tile_dir, f"tile_{name}_{kind}.tif"),
+                          plane, compress="lzw")
+
+    def save_gtiff(self, data: np.ndarray, name: str) -> None:
+        """Write one output map as LZW GeoTIFF with geo metadata + nodata
+        (reference: process_full_tiles.py:481-531)."""
+        os.makedirs(self.cfg.save_path, exist_ok=True)
+        path = os.path.join(self.cfg.save_path,
+                            f"{self.cfg.map_name}_{name}.tiff")
+        write_geotiff(path, data, self.geo_transform, self.projection,
+                      nodata=self.no_value, compress="lzw")
+
+    # ---------------------------------------------------------- full maps
+
+    def process_map(self, progress: bool = True, shard_index: int = 0,
+                    num_shards: int = 1, fill_method: str = "fast") -> dict:
+        """Full pipeline: load -> preprocess -> pad -> tiles -> 3 GeoTIFFs
+        (reference: process_full_tiles.py:568-587).  Returns timing stats;
+        the maps stay in ``self.result``.
+
+        With ``num_shards > 1`` this process runs every ``num_shards``-th
+        tile and writes per-tile dumps plus a manifest instead of the full
+        maps (concurrent shards on shared storage must not clobber one
+        output path); infer/merge.py::merge_shards reassembles them.
+        """
+        t0 = time.perf_counter()
+        self.load_images()
+        self.preprocess(fill_method=fill_method)
+        self.pad_inputs()
+        t_pre = time.perf_counter() - t0
+
+        h, w = self.dem_shape
+        mean_map = np.full((h, w), self.no_value, np.float32)
+        std_map = np.full((h, w), self.no_value, np.float32)
+        good_map = np.zeros((h, w), np.uint8)
+
+        tiles = self.generate_tile_list(shard_index, num_shards)
+        sharded = num_shards > 1
+
+        def commit(px, py, out):
+            self._commit_tile((px, py, out), mean_map, std_map, good_map,
+                              save_tiles=sharded)
+
+        t1 = time.perf_counter()
+        self.run_tiles_serial(tiles, commit, progress=progress)
+        t_tiles = time.perf_counter() - t1
+
+        t2 = time.perf_counter()
+        if self.cfg.save_path:
+            if sharded:
+                from moonsuperresolution_tpu_torch.infer.merge import (
+                    write_shard_manifest,
+                )
+
+                write_shard_manifest(
+                    self.cfg.save_path, self.cfg.map_name, shard_index,
+                    num_shards, tiles, self.dem_shape, self.cfg.tile_size,
+                    self.no_value, self.geo_transform, self.projection,
+                )
+            else:
+                # The three maps are independent: write them concurrently
+                # (write_geotiff also compresses its strips on threads).
+                with concurrent.futures.ThreadPoolExecutor(3) as pool:
+                    futs = [
+                        pool.submit(self.save_gtiff, mean_map, "mean"),
+                        pool.submit(self.save_gtiff, std_map, "std"),
+                        pool.submit(self.save_gtiff,
+                                    good_map.astype(np.uint16), "good"),
+                    ]
+                    for f in futs:
+                        f.result()
+        t_save = time.perf_counter() - t2
+
+        n_patches = len(tiles) * self.geom.grid ** 2
+        self.result = {"mean": mean_map, "std": std_map, "good": good_map}
+        return {
+            "tiles": len(tiles),
+            "patches": n_patches,
+            "preprocess_s": t_pre,
+            "tiles_s": t_tiles,
+            "save_s": t_save,
+            "patches_per_s": n_patches / max(t_tiles, 1e-9),
+        }
+
+    def process_map_streaming(self, progress: bool = True,
+                              fill_method: str = "fast",
+                              shard_index: int = 0,
+                              num_shards: int = 1) -> dict:
+        """Bounded-memory pipeline for rasters too large to hold in host
+        RAM: row-band reads, windowed nodata fill, banded /16 LR synthesis,
+        and strip-streamed GeoTIFF output (infer/streaming.py).  With
+        ``num_shards > 1`` tile-row bands stride across shards; merge with
+        ``infer/merge.py::merge_shards_streaming``."""
+        from moonsuperresolution_tpu_torch.infer.streaming import (
+            process_map_streaming,
+        )
+
+        return process_map_streaming(self, progress=progress,
+                                     fill_method=fill_method,
+                                     shard_index=shard_index,
+                                     num_shards=num_shards)
+
+    def _commit_tile(self, pending, mean_map, std_map, good_map,
+                     save_tiles: bool = False) -> None:
         """Write one tile's planes into the full maps, clipped at the
-        raster's edge."""
-        px, py, (mean_t, std_t, good_t) = pending
+        raster's edge; with ``save_tiles`` also dump the whole tile."""
+        px, py, out = pending
+        mean_t, std_t, good_t = (a.cpu().numpy() for a in out)
         t = self.cfg.tile_size
         h, w = self.dem_shape
         hh = min(t, h - py)
         ww = min(t, w - px)
-        mean_map[py : py + hh, px : px + ww] = mean_t[:hh, :ww].cpu().numpy()
-        std_map[py : py + hh, px : px + ww] = std_t[:hh, :ww].cpu().numpy()
-        good_map[py : py + hh, px : px + ww] = good_t[:hh, :ww].cpu().numpy()
+        mean_map[py : py + hh, px : px + ww] = mean_t[:hh, :ww]
+        std_map[py : py + hh, px : px + ww] = std_t[:hh, :ww]
+        good_map[py : py + hh, px : px + ww] = good_t[:hh, :ww]
+        if save_tiles and self.cfg.save_path:
+            self.save_tile(mean_t, std_t, good_t, f"{px}_{py}")

@@ -13,6 +13,12 @@ modules carry the JAX names, so the mapping is by name:
 The Dense layers' NHWC flatten and reshape are done in the forward pass
 (models/networks.py), so no Dense weight is permuted here.  A top-level
 ``discriminator`` subtree is skipped: the port has no training yet.
+
+``export_params`` is the exact inverse of ``convert_params``: a model's
+weights back to the flat "/"-keyed JAX layout (OIHW -> HWIO, ``[out, in]``
+-> ``[in, out]``, ``weight`` -> ``kernel``), float32, ready for
+``save_npz``.  With it a model built in the port (seeded random weights, say)
+travels through the same ``.npz`` a JAX checkpoint does.
 """
 
 from __future__ import annotations
@@ -63,6 +69,22 @@ def convert_params(params) -> dict[str, torch.Tensor]:
         state[".".join(path + [leaf])] = torch.from_numpy(
             np.ascontiguousarray(v, dtype=np.float32))
     return state
+
+
+def export_params(model: nn.Module) -> dict[str, np.ndarray]:
+    """The model's weights as the flat JAX tree ``convert_params`` reads:
+    ``convert_params(export_params(m))`` is ``m.state_dict()`` in float32."""
+    flat = {}
+    for key, t in model.state_dict().items():
+        *path, leaf = key.split(".")
+        v = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
+            leaf = "kernel"
+        elif leaf not in ("bias", "scale"):
+            raise ValueError(f"unknown parameter {key}")
+        flat["/".join(path + [leaf])] = np.ascontiguousarray(v)
+    return flat
 
 
 def load_params(model: nn.Module, params) -> nn.Module:

@@ -1,5 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points refuse to run on the CPU unless asked to."""
+"""The port stands alone: it imports neither JAX, nor the JAX package, nor
+OpenCV, and its entry points refuse to run on the CPU unless asked to."""
 
 import json
 import os
@@ -9,6 +9,7 @@ import sys
 import pytest
 import torch
 
+from moonsuperresolution_tpu_torch.cli import merge_maps, process_full_tiles
 from moonsuperresolution_tpu_torch.config import DSRConfig
 from moonsuperresolution_tpu_torch.infer.engine import (
     DEMSuperResolution,
@@ -25,7 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "cv2")
              or m == "moonsuperresolution_tpu"
              or m.startswith("moonsuperresolution_tpu."))
 print(json.dumps({"modules": names, "bad": bad}))
@@ -33,13 +35,17 @@ print(json.dumps({"modules": names, "bad": bad}))
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Nor cv2: the machine with the card has no OpenCV."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                           text=True, timeout=120, cwd=root)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "moonsuperresolution_tpu_torch.infer.engine" in out["modules"]
-    assert "moonsuperresolution_tpu_torch.ops.patches" in out["modules"]
+    for name in ("infer.engine", "ops.patches", "geo.tiff", "geo.lzw",
+                 "infer.fill", "infer.lr_synth", "infer.merge",
+                 "infer.streaming", "cli.process_full_tiles",
+                 "cli.merge_maps"):
+        assert f"moonsuperresolution_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
 
@@ -48,19 +54,51 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["engine", "load_model_fn"])
-def test_entry_points_default_to_the_card_and_raise_without_one(no_card,
-                                                                 entry):
+CFG = dict(image_size=64, stride=16, tile_size=128)
+
+
+def _enter(entry, tmp_path, cpu):
+    dev = {"device": "cpu"} if cpu else {}
+    flag = ["--device", "cpu"] if cpu else []
+    if entry == "engine":
+        return DEMSuperResolution(DSRConfig(**CFG), **dev)
+    if entry == "process_map":
+        return DEMSuperResolution(DSRConfig(
+            **CFG, source_folder_path=str(tmp_path)), **dev).process_map()
+    if entry == "load_model_fn":
+        return load_model_fn("", "gaugan", 64, **dev)
+    return process_full_tiles.main([
+        "--source_folder_path", str(tmp_path), "--map_name", "m",
+        "--save_path", str(tmp_path), "--image_size", "64", "--stride", "16",
+        "--tile_size", "128", *flag])
+
+
+ENTRIES = ["engine", "process_map", "load_model_fn", "process_full_tiles"]
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_entry_points_default_to_the_card_and_raise_without_one(
+        no_card, tmp_path, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        if entry == "engine":
-            DEMSuperResolution(DSRConfig(image_size=64, stride=16,
-                                         tile_size=128))
-        else:
-            load_model_fn("", "gaugan", 64)
+        _enter(entry, tmp_path, cpu=False)
 
 
-def test_cpu_only_when_asked(no_card):
-    eng = DEMSuperResolution(DSRConfig(image_size=64, stride=16,
-                                       tile_size=128), device="cpu")
-    assert eng.device.type == "cpu"
-    assert load_model_fn("", "gaugan", 64, device="cpu") is None
+def test_cpu_only_when_asked(no_card, tmp_path):
+    """With the CPU asked for, each entry point gets past the device; the
+    map entry points then fail only on what this empty directory lacks."""
+    assert _enter("engine", tmp_path, cpu=True).device.type == "cpu"
+    assert _enter("load_model_fn", tmp_path, cpu=True) is None
+    for entry in ("process_map", "process_full_tiles"):
+        with pytest.raises(ValueError, match="not found"):
+            _enter(entry, tmp_path, cpu=True)
+
+
+@pytest.mark.parametrize("flags", [[], ["--streaming"]])
+def test_merge_maps_needs_no_card(no_card, tmp_path, flags):
+    """The merge is host numpy: without a card it gets as far as the
+    missing manifests, and it has no --device to ask for one."""
+    args = ["--save_path", str(tmp_path), "--map_name", "m", *flags]
+    with pytest.raises(ValueError, match="no (streaming )?shard manifests"):
+        merge_maps.main(args)
+    with pytest.raises(SystemExit):
+        merge_maps.parse(args + ["--device", "cpu"])
