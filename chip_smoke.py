@@ -11,7 +11,12 @@ prints no result.  Phases; any failure exits non-zero:
   1. The card's name and power limit (nvidia-smi), then every kernel of
      csrc/ built from source, one nvcc per source, all started together.
   2. Each kernel against its plain PyTorch version at the main path's
-     shapes: agreement, kernel time, plain time and the card's bound.
+     shapes: agreement, kernel time, plain time and the card's bound.  The
+     int8 conv (csrc/qconv.cu) at every distinct shape of the int8
+     generator's 30 launches per chunk (batch 16, full width) and one small
+     width, in each epilogue mode (int32 sum, sum rounded to bf16, s8
+     requantize), equal to its plain version bit for bit; its yardstick is
+     the bf16 cuDNN conv of the same shape, which the port never calls.
   3. The main path: full-width GauGAN in bf16 (seeded random weights)
      through ``pad_inputs``, ``generate_tile_list``, ``run_tiles_serial`` and
      the commits over a synthetic raster of two production tiles (image
@@ -20,10 +25,19 @@ prints no result.  Phases; any failure exits non-zero:
      of the path that never launched fails the run.  Then an interior tile
      (every patch valid) is timed, and profiled once: device time by kind
      of kernel and the card's idle share.
+     b. The same for the int8 generator quantized from the same weights
+        (``quantize_model``), ``int8`` and ``int8_static`` (which calibrates
+        once, on real patches of the first tile): the tile loop's coverage
+        equals the bf16 loop's, 30 qconv launches per chunk (1,020 per
+        interior tile), and on 16 valid patches the int8 output is within a
+        relative RMSE of 0.03 of the bf16 model's (the JAX engine's bound,
+        tests/test_quant.py:153).
   4. The output checked: the main path's maps finite where covered and
      no_value elsewhere; the identity model over the same raster gives the
      DEM back where covered; a small float32 model's tile on the card
-     agrees with the same tile on the CPU.
+     agrees with the same tile on the CPU; a small float32 int8_static
+     generator's quantize, calibration and static forward on the card
+     agree with the same on the CPU.
   5. Full map, through the port's CLIs (``main(argv)`` in this process) on
      a synthetic 2048 x 3072 GeoTIFF pair (6 production tiles) with small
      fillable holes, a large hole and a nodata band:
@@ -37,19 +51,23 @@ prints no result.  Phases; any failure exits non-zero:
      c. the identity model in 2 shards merged by the merge CLI, in RAM and
         streaming, against the whole runs of b: identical GeoTIFF files;
      d. the preprocessing's area /4 and cubic-up resizes of the map's DEM
-        on the card against the CPU: equal bit for bit.
+        on the card against the CPU: equal bit for bit;
+     e. the same weights with ``--quantize int8_static --streaming``: the
+        checks of a, calibrated once, the coverage of a.
      Each map run is driven with the launch counters set to 0 and read
-     after; the kernel must have launched in every one.
+     after; every kernel of its path must have launched.
 
 The line before the last is the kernels' JSON record (launches summed over
-phase 3's tile loop and every map run); the last line is
-``{"ok": true, "device": {...}}``.
+phase 3's tile loops and every map run); the last line is
+``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes the whole
+record (every qconv shape's row) to FILE.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import copy
 import json
 import os
 import subprocess
@@ -62,6 +80,7 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores
+H100_INT8_OPS = 1979e12         # dense int8 tensor cores
 
 NO_VALUE = -32768.0
 PROD = dict(image_size=512, stride=64, tile_size=1024, batch_size=16,
@@ -167,6 +186,152 @@ def patches_case(dev, seed):
         library_ms=None)
 
 
+FULL_PLAN = (1024, 1024, 1024, 512, 256, 128)
+SPADE_HIDDEN = 128
+SMALL_QCONV = (2, 12, 16, 24)   # B, S, C, Cout: a ragged K, partial tiles
+# mode -> (acc dtype, requantize to s8); the generator's dtype, bf16, is
+# the output type otherwise.
+QCONV_MODES = {"int32": ("int32", False), "bf16 acc": ("bfloat16", False),
+               "bf16 acc, s8 out": ("bfloat16", True)}
+
+
+def generator_qconvs(plan=FULL_PLAN, size=512, batch=16):
+    """The int8 generator's qconv launches in one call, in order: (site, B,
+    S, C, Cout).  A block (cin -> ch) runs spade_1's gamma/beta conv (SPADE
+    hidden width -> 2 cin), conv_1 (cin -> ch), spade_2's (-> 2 ch), conv_2
+    (ch -> ch) and, when cin != ch, spade_3's (-> 2 cin) and conv_3."""
+    out, cin = [], plan[0]
+    for i, ch in enumerate(plan):
+        s = size // 64 * 2 ** i
+        sites = [("spade_1.gb", SPADE_HIDDEN, 2 * cin), ("conv_1", cin, ch),
+                 ("spade_2.gb", SPADE_HIDDEN, 2 * ch), ("conv_2", ch, ch)]
+        if cin != ch:
+            sites += [("spade_3.gb", SPADE_HIDDEN, 2 * cin),
+                      ("conv_3", cin, ch)]
+        out += [(f"r{i}.{name}", batch, s, c, n) for name, c, n in sites]
+        cin = ch
+    return out
+
+
+def qconv_bound(b, s, c, n, out_bytes):
+    """(bound ms, what bounds it): 2 M N K operations at the int8 peak, or
+    the s8 input, the weights, the output and the per-channel vectors once
+    each at the memory rate."""
+    m, k = b * s * s, 9 * c
+    ops_ms = 2 * m * n * k / H100_INT8_OPS * 1e3
+    bytes_ms = (m * c + n * k + m * n * out_bytes + 12 * n + 4) \
+        / H100_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
+        else "bytes"
+
+
+def qconv_case(dev, seed):
+    """The int8 conv against its plain version, bit for bit, at every
+    distinct shape of the generator's 30 launches per chunk and one small
+    width, in each epilogue mode.  Timed per shape and mode: the kernel,
+    the bf16 cuDNN conv of the same shape (channels_last; the yardstick,
+    never called by the port) and, once per shape in the mode int8_static
+    runs it in, the plain version.  The record's numbers are sums over one
+    chunk's 30 launches in that mode (the gamma/beta convs requantize to
+    s8, the others write bf16; sums rounded to bf16)."""
+    import torch
+    import torch.nn.functional as F
+
+    from moonsuperresolution_tpu_torch.ops import qconv as qc
+
+    launches = generator_qconvs()
+    check(len(launches) == 30, f"{len(launches)} qconv launches per chunk")
+    shapes = sorted({site[1:] for site in launches}, key=lambda t: t[1:])
+    static_mode = {}  # shape -> the mode int8_static runs it in
+    for site, *shape in launches:
+        static_mode[tuple(shape)] = ("bf16 acc, s8 out" if site.endswith(".gb")
+                                     else "bf16 acc")
+    rows, err_max = [], 0.0
+    for shape in shapes + [SMALL_QCONV]:
+        b, s, c, n = shape
+        gen = torch.Generator(dev).manual_seed(seed)
+        x = torch.randint(-127, 128, (b, s, s, c), generator=gen, device=dev,
+                          dtype=torch.int16).to(torch.int8)
+        w = torch.randint(-127, 128, (n, 3, 3, c), generator=gen, device=dev,
+                          dtype=torch.int16).to(torch.int8)
+        s_x = torch.tensor(0.0123, device=dev)
+        # y about N(0, 1): a product of two uniform codes has a std of ~5418.
+        w_scale = (torch.rand(n, generator=gen, device=dev) + 0.5) \
+            / (0.0123 * 5418 * (9 * c) ** 0.5)
+        bias = torch.randn(n, generator=gen, device=dev) * 0.1
+        inv = torch.full((n,), 127 / 3, device=dev)   # clips beyond 3 sigma
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)       # channels_last
+        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=1), reps=10)
+        del xb, wb
+        for mode, (acc, requant) in QCONV_MODES.items():
+            args = (x, w, s_x, w_scale, bias, getattr(torch, acc),
+                    torch.bfloat16, inv if requant else None)
+            got = qc.qconv(*args)
+            torch.cuda.synchronize()
+            want = qc.qconv_plain(*args)
+            check(got.dtype == want.dtype and got.shape == want.shape
+                  and got.is_contiguous(memory_format=torch.channels_last),
+                  f"qconv {shape} {mode}: {got.dtype} {tuple(got.shape)}")
+            err = float((got.float() - want.float()).abs().max())
+            err_max = max(err_max, err)
+            check(err == 0, f"qconv {shape} {mode}: max abs err {err}")
+            del got, want
+            bound, by = qconv_bound(b, s, c, n, 1 if requant else 2)
+            ms = cuda_ms(lambda: qc.qconv(*args), reps=10)
+            plain = (cuda_ms(lambda: qc.qconv_plain(*args), reps=1, warmup=0)
+                     if static_mode.get(shape) == mode else None)
+            rows.append(dict(
+                shape=f"B{b} S{s} K{9 * c}->N{n}", mode=mode, ms=ms,
+                bound_ms=bound, bound_by=by, bound_share=bound / ms,
+                tops=2 * b * s * s * n * 9 * c / ms / 1e9, plain_ms=plain,
+                library_ms=lib_ms, max_abs_err=err))
+            print(f"[qconv] {rows[-1]['shape']:24s} {mode:17s} {ms:9.4f} ms"
+                  f" (bound {bound:.4f} {by}, {rows[-1]['tops']:.0f} TOP/s)"
+                  f"  bf16 conv {lib_ms:.4f} ms  plain "
+                  f"{'-' if plain is None else f'{plain:.2f}'} ms",
+                  file=sys.stderr)
+        del x, w
+        torch.cuda.empty_cache()
+    by_key = {(r["shape"], r["mode"]): r for r in rows}
+    chunk = [by_key[f"B{b} S{s} K{9 * c}->N{n}", static_mode[(b, s, c, n)]]
+             for _, b, s, c, n in launches]
+    share = {"operations": 0.0, "bytes": 0.0}   # of the chunk's bound
+    for r in chunk:
+        share[r["bound_by"]] += r["bound_ms"]
+    return dict(
+        name="qconv3x3_s8", route="cuda",
+        source="moonsuperresolution_tpu_torch/csrc/qconv.cu",
+        replaces="moonsuperresolution_tpu/models/quant.py:94",
+        wrapper=qc.qconv, max_abs_err=err_max,
+        ms=sum(r["ms"] for r in chunk),
+        plain_ms=sum(r["plain_ms"] for r in chunk),
+        bound_ms=sum(share.values()), bound_by=max(share, key=share.get),
+        # bf16 cuDNN conv of the same shapes: no PyTorch call computes an
+        # s8 x s8 conv on the card.
+        library_ms=sum(r["library_ms"] for r in chunk),
+        rows=rows, chunk_top=sum(2 * b * s * s * n * 9 * c
+                                 for _, b, s, c, n in launches) / 1e12)
+
+
+def counted_run(kernels, fn, need, what):
+    """``fn()`` with every launch counter set to 0 just before; each
+    kernel's launches in it are added to its total, and each kernel named
+    in ``need`` must have launched.  Returns (fn's result, launches)."""
+    for k in kernels:
+        k["wrapper"].launches = 0
+    out = fn()
+    got = {k["name"]: k["wrapper"].launches for k in kernels}
+    for k in kernels:
+        k["launches"] += got[k["name"]]
+    for name in need:
+        check(got[name] > 0, f"{name} never launched in {what}")
+    return out, got
+
+
+PATCHES, QCONV = "extract_normalize_patches", "qconv3x3_s8"
+
+
 # ----------------------------------------------------------------- phase 3
 
 
@@ -236,6 +401,19 @@ def valid_slabs(side, seed):
                  for base in (100.0, 1500.0))
 
 
+def check_tile_maps(mean, std, good, dem, what):
+    """Mean and std finite where covered, no_value elsewhere, std >= 0, no
+    nodata DEM pixel covered; returns the coverage mask."""
+    cover = good > 0
+    check(np.isfinite(mean[cover]).all() and np.isfinite(std[cover]).all(),
+          f"{what}: mean/std not finite where covered")
+    check((mean[~cover] == NO_VALUE).all() and (std[~cover] == NO_VALUE).all(),
+          f"{what}: mean/std not no_value where uncovered")
+    check((std[cover] >= 0).all(), f"{what}: negative std")
+    check(not cover[dem <= NO_VALUE].any(), f"{what}: nodata DEM pixels covered")
+    return cover
+
+
 def main_path(dev, seed, kernels):
     import torch
 
@@ -260,33 +438,23 @@ def main_path(dev, seed, kernels):
     torch.cuda.synchronize()
 
     batches.clear()
-    for k in kernels:
-        k["wrapper"].launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    tiles, (mean, std, good) = run_map(eng, img, dem)
+    (tiles, (mean, std, good)), _ = counted_run(
+        kernels, lambda: run_map(eng, img, dem), [PATCHES],
+        "the bf16 tile loop")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    for k in kernels:
-        k["launches"] = k["wrapper"].launches
     peak = torch.cuda.max_memory_allocated(dev)
 
     check(len(tiles) == N_TILES, f"tile list {tiles}")
-    cover = good > 0
+    cover = check_tile_maps(mean, std, good, dem, "bf16 tile loop")
     check(0.3 < cover.mean() < 0.9, f"coverage {cover.mean():.3f}")
-    check(np.isfinite(mean[cover]).all() and np.isfinite(std[cover]).all(),
-          "mean/std not finite where covered")
-    check((mean[~cover] == NO_VALUE).all() and (std[~cover] == NO_VALUE).all(),
-          "mean/std not no_value where uncovered")
-    check((std[cover] >= 0).all(), "negative std")
-    check(not cover[dem <= NO_VALUE].any(), "nodata DEM pixels covered")
-    for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
 
     n_patches = len(tiles) * eng.geom.grid ** 2
     model_patches = sum(batches)          # valid patches plus batch padding
     fpp = flops_per_patch(model, dev, PROD["batch_size"])
-    return eng, model, img, dem, dict(
+    return eng, model, img, dem, good, dict(
         tiles=len(tiles), patches=n_patches, model_patches=model_patches,
         tiles_s=dt, tile_s=dt / len(tiles), patches_per_s=n_patches / dt,
         peak_mem_gib=peak / 2 ** 30,
@@ -297,6 +465,7 @@ def main_path(dev, seed, kernels):
 
 
 KERNEL_KINDS = (  # (category, substrings of the CUDA kernel's name)
+    ("int8 conv (csrc/qconv.cu)", ("qconv3x3",)),
     ("conv/gemm", ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad")),
     ("fold (col2im)", ("col2im", "im2col")),
     ("patch prep (csrc/patches.cu)", ("patches_block_minmax",
@@ -315,14 +484,16 @@ def kernel_kind(name):
     return "other"
 
 
-def full_tile(eng, fpp, seed, reps=3):
-    """An interior tile (all 529 patches valid): its time, and a profile of
-    one more run: device time by kind of kernel, and the card's idle share
-    of the tile's wall time."""
+def full_tile(eng, fpp, seed, kernels, reps=3):
+    """An interior tile (all 529 patches valid): its time, each kernel's
+    launches per tile, and a profile of one more run: device time by kind
+    of kernel, and the card's idle share of the tile's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     eng.img_padded, eng.dem_padded = valid_slabs(eng.geom.slab, seed)
+    for k in kernels:
+        k["wrapper"].launches = 0
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -351,6 +522,8 @@ def full_tile(eng, fpp, seed, reps=3):
     n = eng.geom.grid ** 2
     tile_s = sum(times) / len(times)
     return dict(
+        full_tile_launches={k["name"]: k["wrapper"].launches / (reps + 1)
+                            for k in kernels},
         full_tile_s=tile_s, full_tile_s_runs=times,
         full_tile_patches_per_s=n / tile_s,
         full_tile_model_tflop_per_s=n * fpp / tile_s / 1e12,
@@ -359,6 +532,111 @@ def full_tile(eng, fpp, seed, reps=3):
         device_idle_share=max(0.0, 1 - busy / 1e3 / wall),
         device_ms_by_kind=dict(sorted(by_kind.items(),
                                       key=lambda kv: -kv[1])))
+
+
+def rel_rmse(got, want):
+    """RMSE of ``got - want`` over the span of ``want``."""
+    d = (got.float() - want.float()).pow(2).mean().sqrt()
+    return float(d / (want.max() - want.min()).clamp_min(1e-9))
+
+
+def int8_paths(dev, seed, model, kernels, img, dem, bf16_good, fpp):
+    """Phase 3b: the int8 generator, quantized from phase 3's weights, on
+    the main path in each mode.  The tile loop over phase 3's raster (with
+    the counters set to 0 just before), an interior tile timed, counted and
+    profiled, and 16 valid patches against the bf16 model."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.config import DSRConfig
+    from moonsuperresolution_tpu_torch.infer.engine import (
+        DEMSuperResolution,
+        quantize_model,
+    )
+    from moonsuperresolution_tpu_torch.ops.patches import (
+        extract_normalize_patches,
+    )
+
+    g = DEMSuperResolution(DSRConfig(**PROD), device=dev).geom
+    slabs = [torch.from_numpy(a).to(dev) for a in valid_slabs(g.slab, seed)]
+    x = extract_normalize_patches(*slabs, (g.grid, g.grid), g.stride,
+                                  g.image_size, NO_VALUE)[0]
+    src16 = x[:PROD["batch_size"]].permute(0, 3, 1, 2).to(torch.bfloat16)
+    del x, slabs
+    with torch.inference_mode():
+        ref = model(src16, generator=torch.Generator(dev).manual_seed(seed))
+
+    stats = {}
+    for mode in ("int8", "int8_static"):
+        t0 = time.perf_counter()
+        qmodel = quantize_model(model, mode, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        calls, cal = [], []
+        hook = qmodel.register_forward_pre_hook(
+            lambda m, a: calls.append(a[0].shape[0]))
+        if mode == "int8_static":
+            real = qmodel.calibrate_on
+
+            def counting(batch, real=real):
+                cal.append(batch.shape[0])
+                return real(batch)
+
+            qmodel.calibrate_on = counting
+        eng = DEMSuperResolution(DSRConfig(seed=seed, **PROD), model=qmodel,
+                                 device=dev)
+        eng.img_padded, eng.dem_padded = valid_slabs(eng.geom.slab, seed)
+        eng.process_tile(0, 0)          # warm-up, outside the counts
+        torch.cuda.synchronize()
+        calls.clear()
+        t0 = time.perf_counter()
+        (tiles, (mean, std, good)), got = counted_run(
+            kernels, lambda: run_map(eng, img, dem), [PATCHES, QCONV],
+            f"the {mode} tile loop")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        chunks = len(calls)
+        check(len(cal) == (mode == "int8_static") and all(
+            1 <= n <= 8 for n in cal), f"{mode}: calibrations {cal}")
+        check(got[QCONV] == 30 * (chunks + len(cal)),
+              f"{mode}: {got[QCONV]} qconv launches for {chunks} chunks "
+              f"and {len(cal)} calibrations")
+        # One patch prep per tile, and one for the calibration's patches.
+        check(got[PATCHES] == len(tiles) + len(cal),
+              f"{mode}: {got[PATCHES]} patch preps for {len(tiles)} tiles "
+              f"and {len(cal)} calibrations")
+        check_tile_maps(mean, std, good, dem, f"{mode} tile loop")
+        check((good == bf16_good).all(),
+              f"{mode}: coverage differs from the bf16 tile loop's")
+
+        st = full_tile(eng, fpp, seed, kernels)
+        per_tile = st["full_tile_launches"]
+        check(per_tile[QCONV] == 30 * -(-g.grid ** 2 // PROD["batch_size"])
+              and per_tile[PATCHES] == 1,
+              f"{mode}: launches per interior tile {per_tile}")
+        with torch.inference_mode():
+            out = qmodel(src16,
+                         generator=torch.Generator(dev).manual_seed(seed))
+        rel = rel_rmse(out, ref)
+        check(torch.isfinite(out).all() and rel < 0.03,
+              f"{mode}: relative RMSE {rel} against the bf16 model")
+        hook.remove()
+        stats.update({f"{mode}_{k}": v for k, v in st.items()})
+        stats.update({f"{mode}_load_s": load_s, f"{mode}_tiles_s": dt,
+                      f"{mode}_chunks": chunks,
+                      f"{mode}_calibrations": cal,
+                      f"{mode}_tile_loop_launches": got,
+                      f"{mode}_rel_rmse_vs_bf16": rel})
+        print(f"[{mode}] load {load_s:.3f} s; tile loop {len(tiles)} tiles "
+              f"in {dt:.3f} s; interior tile {st['full_tile_s']:.3f} s = "
+              f"{st['full_tile_patches_per_s']:.2f} patches/s, card idle "
+              f"{100 * st['device_idle_share']:.1f} %, qconv "
+              f"{per_tile[QCONV]:.0f} launches per tile; relative RMSE "
+              f"against bf16 on 16 patches {rel:.5f}")
+        print(f"[{mode}] device ms by kind: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in st["device_ms_by_kind"].items()))
+        del eng, qmodel
+        torch.cuda.empty_cache()
+    return stats
 
 
 # ----------------------------------------------------------------- phase 4
@@ -425,6 +703,81 @@ def small_model_check(dev, seed):
     return dict(small_model_card_vs_cpu_max_err_m=err)
 
 
+def small_int8_check(dev, seed):
+    """The int8 generator's own code on the card against the CPU: the
+    int8_static generator in float32 at a small config (image 64, latent
+    16, channel plan 64-64-32-32-16-16; the kernel takes widths that are
+    multiples of 16), TF32 off.
+
+    - Weight quantize and the per-tensor activation quantize, same inputs:
+      equal bit for bit.  Each is a fixed sequence of IEEE float32
+      operations, with its divisors device tensors.
+    - Calibration, same inputs: every scale within 2 % of the CPU's.  Its
+      forward quantizes with dynamic scales, so a float32 sum taken in
+      another order on the card (mask convs, SPADE moments, the Dense)
+      flips a code now and then, and a flipped code moves every later
+      maximum a little.  A lost margin (5 %) does not pass.
+    - The static forward with the CPU's scales on both sides: relative
+      RMSE over the output span under 2e-3, the bound that holds the port
+      to JAX (a tenth of the quantization error's).  It cannot be as tight
+      as the float model's: a code flipped by one float32 ulp moves the
+      result by a whole quantization step."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.config import ModelConfig
+    from moonsuperresolution_tpu_torch.models.gaugan import GauGAN
+    from moonsuperresolution_tpu_torch.models.layers import init_params
+    from moonsuperresolution_tpu_torch.models.quant import (
+        QuantizedSpadeGenerator,
+        _quant_act_per_tensor,
+    )
+
+    plan, size = (64, 64, 32, 32, 16, 16), 64
+    cfg = ModelConfig(variant="cnn_spade", image_size=size, latent_dim=16,
+                      channel_plan=plan, encoder_filters=8)
+    gen = init_params(GauGAN(cfg),
+                      torch.Generator().manual_seed(seed)).generator.eval()
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((4, 16)).astype(np.float32)
+    cal, src = (rng.uniform(-0.5, 0.5, (4, 2, size, size)).astype(np.float32)
+                for _ in range(2))
+    act = (rng.standard_normal((4, 64, 16, 16)) * 3).astype(np.float32)
+    q, scales, acts = {}, {}, {}
+    for d in ("cpu", dev):
+        q[d] = QuantizedSpadeGenerator(
+            size, channel_plan=plan, dtype=torch.float32).quantize(
+                copy.deepcopy(gen).to(d))
+        acts[d] = [t.cpu() for t in
+                   _quant_act_per_tensor(torch.from_numpy(act).to(d))]
+        scales[d] = {k: v.cpu() for k, v in q[d].calibrate(
+            torch.from_numpy(z).to(d), torch.from_numpy(cal).to(d)).items()}
+    card = q[dev].state_dict()
+    for k, v in q["cpu"].state_dict().items():
+        check(torch.equal(card[k].cpu(), v),
+              f"small int8: quantized {k} differs, card against CPU")
+    check(all(torch.equal(a, b) for a, b in zip(acts["cpu"], acts[dev])),
+          "small int8: activation quantize differs, card against CPU")
+    check(scales["cpu"].keys() == scales[dev].keys(),
+          "small int8: calibrated sites differ, card against CPU")
+    scale_err = max(float(((scales[dev][k] - v) / v).abs().max())
+                    for k, v in scales["cpu"].items())
+    check(scale_err < 0.02, f"small int8: calibrated scales differ by up to "
+          f"{scale_err:.4f} relative, card against CPU")
+    q[dev].act_scales = {k: v.to(dev) for k, v in scales["cpu"].items()}
+    outs = []
+    with torch.no_grad():
+        for d in ("cpu", dev):
+            outs.append(q[d](torch.from_numpy(z).to(d),
+                             torch.from_numpy(src).to(d)).cpu())
+    want, got = outs
+    rel = rel_rmse(got, want)
+    check(got.shape == (4, 1, size, size) and bool(torch.isfinite(got).all())
+          and rel < 2e-3, f"small int8: static forward differs by a "
+          f"relative RMSE of {rel}, card against CPU")
+    return dict(small_int8_scale_max_rel_diff=scale_err,
+                small_int8_card_vs_cpu_rel_rmse=rel)
+
+
 # ----------------------------------------------------------------- phase 5
 
 MAP_HW = (2048, 3072)                # 2 x 3 production tiles; both % 4 == 0
@@ -463,17 +816,11 @@ def synthetic_map(td, seed):
     return stays, filled
 
 
-def run_cli(kernels, module, argv):
-    """One CLI run with the launch counters set to 0 just before; returns
-    its result and the launches of each kernel in it, which also add to
-    each kernel's total."""
-    for k in kernels:
-        k["wrapper"].launches = 0
-    out = module.main(argv)
-    launches = {k["name"]: k["wrapper"].launches for k in kernels}
-    for k in kernels:
-        k["launches"] += launches[k["name"]]
-    return out, launches
+def run_cli(kernels, module, argv, what, need=(PATCHES,)):
+    """One CLI run through ``counted_run``: returns its result and the
+    launches of each kernel in it."""
+    return counted_run(kernels, lambda: module.main(argv), need,
+                       f"the {what} map run")
 
 
 def read_triple(path, name):
@@ -538,11 +885,34 @@ def resizes_card_vs_cpu(dev, dem_path):
     return errs
 
 
+def check_map(m, res, stays, filled, what):
+    """A whole map's three planes: shape, coverage, finite mean and std
+    where covered and no_value elsewhere, std >= 0, no nodata pixel
+    covered, the small holes filled and covered."""
+    cover = m["good"] > 0
+    check(m["good"].shape == MAP_HW and res["tiles"] == 6,
+          f"{what}: map shape {m['good'].shape}, {res['tiles']} tiles")
+    check(0.3 < cover.mean() < 0.9, f"{what}: coverage {cover.mean():.3f}")
+    check(np.isfinite(m["mean"][cover]).all()
+          and np.isfinite(m["std"][cover]).all(),
+          f"{what}: mean/std not finite where covered")
+    check((m["mean"][~cover] == NO_VALUE).all()
+          and (m["std"][~cover] == NO_VALUE).all(),
+          f"{what}: mean/std not no_value where uncovered")
+    check((m["std"][cover] >= 0).all(), f"{what}: negative std")
+    check(not cover[stays].any(), f"{what}: nodata pixels covered")
+    check(cover[filled].all(), f"{what}: small holes not filled and covered")
+    return cover
+
+
 def full_map(dev, model, kernels, seed):
     import torch
 
     from moonsuperresolution_tpu_torch.cli import merge_maps
     from moonsuperresolution_tpu_torch.cli import process_full_tiles as cli
+    from moonsuperresolution_tpu_torch.models.gaugan import (
+        StaticQuantizedGauGAN,
+    )
     from moonsuperresolution_tpu_torch.utils.convert import (
         export_params,
         save_npz,
@@ -560,35 +930,52 @@ def full_map(dev, model, kernels, seed):
         save_npz(npz, export_params(model))
         torch.cuda.reset_peak_memory_stats(dev)
         out = os.path.join(td, "model")
-        res, launches["model in RAM"] = run_cli(kernels, cli, geom + [
-            "--map_name", "map", "--save_path", out, "--model_path", npz,
-            "--model_kind", "gaugan"])
+        model_argv = geom + ["--map_name", "map", "--model_path", npz,
+                             "--model_kind", "gaugan"]
+        res, launches["model in RAM"] = run_cli(
+            kernels, cli, model_argv + ["--save_path", out], "bf16 model")
         torch.cuda.synchronize()
         stats.update({f"map_{k}": v for k, v in res.items()})
         stats["map_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-        os.remove(npz)
         m = read_triple(out, "map")
-        cover = m["good"] > 0
-        check(m["good"].shape == MAP_HW and res["tiles"] == 6,
-              f"map shape {m['good'].shape}, {res['tiles']} tiles")
-        check(0.3 < cover.mean() < 0.9, f"map coverage {cover.mean():.3f}")
-        check(np.isfinite(m["mean"][cover]).all()
-              and np.isfinite(m["std"][cover]).all(),
-              "map: mean/std not finite where covered")
-        check((m["mean"][~cover] == NO_VALUE).all()
-              and (m["std"][~cover] == NO_VALUE).all(),
-              "map: mean/std not no_value where uncovered")
-        check((m["std"][cover] >= 0).all(), "map: negative std")
-        check(not cover[stays].any(), "map: nodata pixels covered")
-        check(cover[filled].all(), "map: small holes not filled and covered")
+        cover = check_map(m, res, stays, filled, "bf16 map")
         stats["map_coverage"] = float(cover.mean())
+
+        # e. the same weights, int8_static, streaming: calibrated once
+        out_q = os.path.join(td, "int8_static")
+        cal, real = [], StaticQuantizedGauGAN.calibrate_on
+
+        def counting(self, batch):
+            cal.append(batch.shape[0])
+            return real(self, batch)
+
+        StaticQuantizedGauGAN.calibrate_on = counting
+        try:
+            res, launches["int8_static streaming"] = run_cli(
+                kernels, cli, model_argv + [
+                    "--save_path", out_q, "--quantize", "int8_static",
+                    "--streaming"], "int8_static streaming", (PATCHES, QCONV))
+        finally:
+            StaticQuantizedGauGAN.calibrate_on = real
+        torch.cuda.synchronize()
+        os.remove(npz)
+        stats.update({f"map_int8_static_{k}": v for k, v in res.items()})
+        check(len(cal) == 1 and 1 <= cal[0] <= 8,
+              f"int8_static map: calibrations {cal}")
+        q = read_triple(out_q, "map")
+        check_map(q, res, stays, filled, "int8_static map")
+        check((q["good"] == m["good"]).all(),
+              "int8_static map: coverage differs from the bf16 map's")
+        stats["map_int8_static_mean_abs_diff_vs_bf16_m"] = float(
+            np.abs(q["mean"][cover] - m["mean"][cover]).mean())
 
         # b. identity model, in RAM against streaming: the same files
         ident = geom + ["--map_name", "map"]
         for mode, flags in (("ram", []), ("st", ["--streaming"])):
             _, launches[f"identity {mode}"] = run_cli(
                 kernels, cli, ident + ["--save_path",
-                                       os.path.join(td, mode)] + flags)
+                                       os.path.join(td, mode)] + flags,
+                f"identity {mode}")
         a = read_triple(os.path.join(td, "ram"), "map")
         check((a["good"] > 0).mean() > 0.3, "identity map: little coverage")
         same_files(os.path.join(td, "ram"), os.path.join(td, "st"),
@@ -601,7 +988,8 @@ def full_map(dev, model, kernels, seed):
                 _, launches[f"identity {mode} shard {i}"] = run_cli(
                     kernels, cli, ident + ["--save_path", sh,
                                            "--shard_index", str(i),
-                                           "--num_shards", "2"] + flags)
+                                           "--num_shards", "2"] + flags,
+                    f"identity {mode} shard {i}")
             merge_maps.main(["--save_path", sh, "--map_name", "map",
                              "--num_shards", "2"] + flags)
             same_files(os.path.join(td, mode), sh, f"{mode} shards")
@@ -609,9 +997,6 @@ def full_map(dev, model, kernels, seed):
         # d. the resizes of the map's preprocessing, card against CPU
         stats["resize_card_vs_cpu_max_abs_err"] = resizes_card_vs_cpu(
             dev, os.path.join(td, "run-DEM.tif"))
-    for path, counts in launches.items():
-        for name, n in counts.items():
-            check(n > 0, f"{name} never launched in the {path} map run")
     stats["map_launches"] = launches
     return stats
 
@@ -623,6 +1008,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the synthetic data")
+    ap.add_argument("--out", default=None,
+                    help="also write the whole JSON record to this file")
     args = ap.parse_args(argv)
 
     import torch
@@ -644,14 +1031,16 @@ def main(argv=None):
         build_all()
 
         phase = "2 kernels vs plain"
-        kernels = [patches_case(dev, args.seed)]
+        kernels = [patches_case(dev, args.seed), qconv_case(dev, args.seed)]
         for k in kernels:
+            k["launches"] = 0
             print(f"[kernel] {k['name']}: {k['ms']:.4f} ms, plain "
                   f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
                   f"({k['bound_by']}), max abs err {k['max_abs_err']:.3g}")
 
         phase = "3 main path"
-        eng, model, img, dem, stats = main_path(dev, args.seed, kernels)
+        eng, model, img, dem, good, stats = main_path(dev, args.seed,
+                                                      kernels)
         print(f"[main path] full-width bf16 GauGAN, {stats['params']} "
               f"params: {stats['tiles']} tiles in {stats['tiles_s']:.3f} s "
               f"= {stats['tile_s']:.3f} s/tile, "
@@ -663,8 +1052,8 @@ def main(argv=None):
         print(f"[main path] launches: "
               + ", ".join(f"{k['name']}={k['launches']}" for k in kernels))
 
-        stats.update(full_tile(eng, stats["model_gflop_per_patch"] * 1e9,
-                               args.seed))
+        fpp = stats["model_gflop_per_patch"] * 1e9
+        stats.update(full_tile(eng, fpp, args.seed, kernels))
         print(f"[full tile] all patches valid: {stats['full_tile_s']:.3f} s "
               f"= {stats['full_tile_patches_per_s']:.2f} patches/s, model at "
               f"{stats['full_tile_model_tflop_per_s']:.1f} TFLOP/s; card "
@@ -673,9 +1062,18 @@ def main(argv=None):
             f"{k} {v:.1f}" for k, v in stats["device_ms_by_kind"].items()))
         del eng
 
+        phase = "3b int8 main path"
+        stats.update(int8_paths(dev, args.seed, model, kernels, img, dem,
+                                good, fpp))
+
         phase = "4 output checks"
         stats.update(identity_check(dev, img, dem))
         stats.update(small_model_check(dev, args.seed))
+        stats.update(small_int8_check(dev, args.seed))
+        print(f"[small int8] card against CPU: calibrated scales within "
+              f"{stats['small_int8_scale_max_rel_diff']:.5f} relative, "
+              f"static forward relative RMSE "
+              f"{stats['small_int8_card_vs_cpu_rel_rmse']:.3g}")
 
         phase = "5 full map"
         stats.update(full_map(dev, model, kernels, args.seed))
@@ -686,6 +1084,13 @@ def main(argv=None):
               f"{stats['map_tiles_s']:.3f}, save_s {stats['map_save_s']:.3f}, "
               f"{stats['map_patches_per_s']:.2f} patches/s, peak memory "
               f"{stats['map_peak_mem_gib']:.2f} GiB")
+        print(f"[full map] int8_static streaming: preprocess_s "
+              f"{stats['map_int8_static_preprocess_s']:.3f}, tiles_s "
+              f"{stats['map_int8_static_tiles_s']:.3f}, save_s "
+              f"{stats['map_int8_static_save_s']:.3f}; mean differs from the "
+              f"bf16 map's by "
+              f"{stats['map_int8_static_mean_abs_diff_vs_bf16_m']:.4f} m "
+              f"on average")
         print("[full map] launches: " + ", ".join(
             f"{path} {sum(c.values())}"
             for path, c in stats["map_launches"].items()))
@@ -699,12 +1104,18 @@ def main(argv=None):
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1
 
-    print(json.dumps({"card": card, "stats": stats}))
-    print(json.dumps({"kernels": [
+    record = {"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}
-        for k in kernels]}))
+        for k in kernels]}
+    qrows = kernels[1]["rows"]
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "stats": stats, "qconv_rows": qrows,
+                       **record}, f, indent=1)
+    print(json.dumps({"card": card, "stats": stats}))
+    print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

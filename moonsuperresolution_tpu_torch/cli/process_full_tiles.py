@@ -11,9 +11,10 @@ Reads ``<source>/run-DRG.tif`` and ``<source>/run-DEM.tif`` and writes
 of the JAX parameter tree (``scripts/export_params_npz.py`` makes one from
 an Orbax checkpoint); leave it unset for the identity-model pipeline check.
 Runs on the first CUDA card; ``--device cpu`` runs on the CPU.
-``--streaming`` bounds host memory for rasters larger than RAM;
-``--shard_index/--num_shards`` split the map across jobs, merged afterwards
-by ``moonsuperresolution_tpu_torch.cli.merge_maps``.
+``--quantize int8|int8_static`` runs the int8 generator, quantized from the
+same weights at load time.  ``--streaming`` bounds host memory for rasters
+larger than RAM; ``--shard_index/--num_shards`` split the map across jobs,
+merged afterwards by ``moonsuperresolution_tpu_torch.cli.merge_maps``.
 """
 
 from __future__ import annotations
@@ -46,8 +47,13 @@ def parse(argv=None):
     p.add_argument("--shard_index", type=int, default=0)
     p.add_argument("--num_shards", type=int, default=1)
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
-    p.add_argument("--quantize", type=str, default="none", choices=["none"],
-                   help="the int8 generator is not ported yet")
+    p.add_argument("--quantize", type=str, default="none",
+                   choices=["none", "int8", "int8_static"],
+                   help="int8: the generator's convs in int8 with "
+                        "per-conv activation scales taken at run time; "
+                        "int8_static: with calibrated activation scales. "
+                        "Both deviate a little from the float model; their "
+                        "speed against bf16 is in PERF.md")
     p.add_argument("--fill_method", type=str, default="fast",
                    choices=["fast", "reference"],
                    help="nodata interpolation: 'reference' is the exact "

@@ -6,9 +6,8 @@ Left out, because nothing in the port reads them: the training, loss,
 optimizer and data settings; ``fuse_spade_gb`` (the port always issues the
 SPADE gamma/beta convs as one conv); and the TPU-only inference knobs
 ``use_pallas_patches`` (the port always prepares patches with its fused
-kernel on the card), ``scan_unroll`` (PyTorch runs the chunk loop eagerly)
-and ``quantize`` values other than "none" (the int8 generator is a later
-slice).  ``pack_valid`` is always on: the port packs valid patches as the
+kernel on the card) and ``scan_unroll`` (PyTorch runs the chunk loop
+eagerly).  ``pack_valid`` is always on: the port packs valid patches as the
 reference batches them.  ``upsample_factor`` (read by nothing in the JAX
 package either) and ``save_tiles`` are left out too: a sharded in-RAM run
 writes per-tile dumps, a whole run does not.
@@ -56,7 +55,9 @@ class DSRConfig:
     model_path: Optional[str] = None
     model_kind: str = "gaugan"  # gaugan | gaugan_no_kl | cnn_spade | identity
     compute_dtype: str = "bfloat16"
-    quantize: str = "none"  # only "none" is ported
+    # "int8": the int8 generator with dynamic activation scales;
+    # "int8_static": with calibrated ones (models/quant.py).
+    quantize: str = "none"  # none | int8 | int8_static
     # Process-pool size for nodata hole filling (0 = one per CPU).
     fill_workers: int = 0
     # Seed of the per-tile latent draws (the Monte-Carlo uncertainty source).

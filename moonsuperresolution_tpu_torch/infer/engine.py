@@ -25,8 +25,13 @@ Host work that stays on the host: the nodata fill (scipy, infer/fill.py)
 and the GeoTIFF codec.  The /16 synthesis's resizes run on the engine's
 device (ops/resize.py).
 
-Not ported yet: the int8 generator, the multi-device tile-parallel mode
-(``process_tile_group``) and the tile profile (``profile_dir``).
+``load_model_fn(quantize="int8" | "int8_static")`` gives the int8 generator
+(models/quant.py, its convs on the hand-written s8 kernel csrc/qconv.cu);
+``int8_static`` re-calibrates its activation scales once, on real patches of
+the first staged slabs, before the first tile (``_maybe_calibrate``).
+
+Not ported yet: the multi-device tile-parallel mode (``process_tile_group``)
+and the tile profile (``profile_dir``).
 """
 
 from __future__ import annotations
@@ -44,7 +49,12 @@ from moonsuperresolution_tpu_torch.config import DSRConfig, ModelConfig
 from moonsuperresolution_tpu_torch.device import resolve_device
 from moonsuperresolution_tpu_torch.geo.tiff import TiffReader, write_geotiff
 from moonsuperresolution_tpu_torch.infer.fill import fill_nodata
-from moonsuperresolution_tpu_torch.models.gaugan import DTYPES, GauGAN
+from moonsuperresolution_tpu_torch.models.gaugan import (
+    DTYPES,
+    GauGAN,
+    QuantizedGauGAN,
+    StaticQuantizedGauGAN,
+)
 from moonsuperresolution_tpu_torch.ops.blend import (
     fold_weighted_moments,
     gaussian_blend_kernel,
@@ -57,10 +67,13 @@ from moonsuperresolution_tpu_torch.ops.resize import (
 from moonsuperresolution_tpu_torch.utils.convert import load_params
 
 
+QUANTIZE_MODES = ("none", "int8", "int8_static")
+
+
 def load_model_fn(model_path: Optional[str], kind: str, image_size: int,
                   latent_dim: int = 256, compute_dtype: str = "bfloat16",
-                  quantize: str = "none", device=None,
-                  **model_kw) -> Optional[GauGAN]:
+                  quantize: str = "none", int8_acc: str = "bfloat16",
+                  device=None, **model_kw):
     """The patch-batch model: ``model(source [B, 2, I, I], generator=...) ->
     [B, 1, I, I]`` float32.
 
@@ -70,17 +83,47 @@ def load_model_fn(model_path: Optional[str], kind: str, image_size: int,
     ``model_path`` is an ``.npz`` of the JAX parameter tree
     (``utils.convert.save_npz``).  ``model_kw`` sets other ModelConfig
     fields (a smaller channel plan, say).
+
+    ``quantize``: "none", or the int8 generator (``quantize_model``):
+    "int8" with dynamic activation scales, "int8_static" with calibrated
+    ones.  ``int8_acc`` is its conv result type: "bfloat16" (the sum
+    rounded once to bf16) or "int32" (exact).
     """
     dev = resolve_device(device)
-    if quantize != "none":
-        raise ValueError(f"quantize={quantize!r} is not ported; use 'none'")
+    if quantize not in QUANTIZE_MODES:
+        raise ValueError(f"unknown quantize mode {quantize!r}; one of "
+                         f"{QUANTIZE_MODES}")
     if not model_path:
         return None
     cfg = ModelConfig(variant=kind, image_size=image_size,
                       latent_dim=latent_dim, compute_dtype=compute_dtype,
                       **model_kw)
     model = load_params(GauGAN(cfg), model_path)
+    if quantize != "none":
+        return quantize_model(model, quantize, compute_dtype, int8_acc, dev)
     return model.to(device=dev, dtype=DTYPES[compute_dtype]).eval()
+
+
+def quantize_model(model: GauGAN, quantize: str,
+                   compute_dtype: str = "bfloat16", int8_acc: str = "bfloat16",
+                   device=None) -> QuantizedGauGAN:
+    """A float GauGAN -> its int8 twin on ``device`` (counterpart of the
+    JAX ``load_model_fn``'s int8 branch, infer/engine.py:85-147).  The
+    generator is quantized from the float weights; a copy of the encoder
+    runs in ``compute_dtype``, and ``model`` is left as it was.  "int8_static" bootstraps its
+    activation scales on synthetic normalised patches (2 rounds at margin
+    1.05); the engine widens them on real patches before the first tile."""
+    dev = resolve_device(device)
+    if quantize not in QUANTIZE_MODES[1:]:
+        raise ValueError(f"quantize {quantize!r} is not an int8 mode")
+    cls = StaticQuantizedGauGAN if quantize == "int8_static" \
+        else QuantizedGauGAN
+    qmodel = cls(model, acc_dtype=int8_acc)
+    qmodel.encoder.to(DTYPES[compute_dtype])
+    qmodel = qmodel.to(dev).eval()
+    if quantize == "int8_static":
+        qmodel.bootstrap()
+    return qmodel
 
 
 @dataclasses.dataclass
@@ -123,6 +166,7 @@ class DEMSuperResolution:
         self.compute_dtype = DTYPES[config.compute_dtype]
         self.weight = torch.from_numpy(
             gaussian_blend_kernel(config.image_size)).to(self.device)
+        self._calibrated = False
 
     # ------------------------------------------------------------ rasters
 
@@ -281,12 +325,34 @@ class DEMSuperResolution:
                     for a in self._slabs(px, py))
         return self.tile_program(img, dem, self.tile_generator(px, py))
 
+    def _maybe_calibrate(self, img_slab, dem_slab) -> None:
+        """One-time int8_static re-calibration on real patches: the loader
+        bootstraps the activation scales on synthetic noise, but real
+        DEM/ortho activations are structured and can exceed them (silent
+        clipping).  The first 8 valid patches, in grid order, of the first
+        staged slabs, cut and normalised by the tile program's patch prep,
+        go to the model's ``calibrate_on`` as float32 [n, 2, I, I] on the
+        engine's device, before any tile is processed."""
+        if (self.model is None or not hasattr(self.model, "calibrate_on")
+                or self._calibrated):
+            return
+        self._calibrated = True
+        g = self.geom
+        x, valid, _, _ = extract_normalize_patches(
+            img_slab, dem_slab, (g.grid, g.grid), g.stride, g.image_size,
+            self.no_value)
+        idx = torch.nonzero(valid > 0).flatten()[:8]
+        if not len(idx):
+            return  # fully invalid slab: the bootstrap scales remain
+        self.model.calibrate_on(x.permute(0, 3, 1, 2).index_select(0, idx))
+
     def run_tiles_serial(self, tiles, commit, progress: bool = False,
                          slab_provider=None) -> None:
         """Tile loop with staged uploads.  While the card runs tile i, a
         worker thread slices tile i+1's slabs, pins them and copies them up
         on a side CUDA stream; ``commit(px, py, out)`` runs on another
-        thread, one tile behind.
+        thread, one tile behind.  The first tile's staged slabs feed the
+        one-time int8_static calibration (``_maybe_calibrate``).
 
         ``slab_provider(px, py) -> (img_slab, dem_slab)`` overrides the
         slicing of the padded rasters: the streaming engine cuts slabs out
@@ -312,6 +378,8 @@ class DEMSuperResolution:
         with concurrent.futures.ThreadPoolExecutor(1) as up_pool, \
                 concurrent.futures.ThreadPoolExecutor(1) as down_pool:
             staged = stage(*tiles[0]) if tiles else None
+            if staged is not None:
+                self._maybe_calibrate(*staged)
             for idx, (px, py) in enumerate(tiles):
                 nxt = (up_pool.submit(stage, *tiles[idx + 1])
                        if idx + 1 < len(tiles) else None)

@@ -131,6 +131,21 @@ def spade_moments(xs: torch.Tensor, stats: str = "batch"):
     return mean, var
 
 
+def spade_moments_centered(x: torch.Tensor, stats: str = "batch"):
+    """Two-pass SPADE moments that read ``x`` in its own dtype (bf16 in the
+    int8 generator): a float32-accumulated mean (bf16 values are exact in
+    float32), then the mean of float32 centred squares, all positive, so
+    nothing cancels.  The single-pass E[x^2] - E[x]^2 of ``spade_moments``
+    needs float32 inputs: with bf16 the rounding of x^2 is amplified
+    without bound when the mean is large against the spread."""
+    dims = (0, 2, 3) if stats == "batch" else (2, 3)
+    n = math.prod(x.shape[d] for d in dims)
+    mean = x.sum(dims, keepdim=True, dtype=torch.float32) / n
+    xc = x.to(torch.float32) - mean
+    var = (xc * xc).mean(dims, keepdim=True)
+    return mean, var
+
+
 def spade_normalize(x: torch.Tensor, stats: str, stats_dtype) -> torch.Tensor:
     xs = x.to(stats_dtype)
     mean, var = spade_moments(xs, stats)

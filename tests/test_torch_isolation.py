@@ -41,7 +41,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                           text=True, timeout=120, cwd=root)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    for name in ("infer.engine", "ops.patches", "geo.tiff", "geo.lzw",
+    for name in ("infer.engine", "ops.patches", "ops.qconv", "models.quant",
+                 "geo.tiff", "geo.lzw",
                  "infer.fill", "infer.lr_synth", "infer.merge",
                  "infer.streaming", "cli.process_full_tiles",
                  "cli.merge_maps"):

@@ -3,9 +3,13 @@
 This file imports no JAX, so that it also runs on a machine with a card and
 no JAX (``python -m pytest --noconftest tests/test_torch_kernels.py``; the
 repository's conftest imports JAX).  The cases marked ``gpu`` launch the
-kernels and skip where there is no card; the others hold the plain version,
-which the CPU runs, against a per-patch numpy loop.  Validity must match
-exactly; the rest to 1e-6 (IEEE float32 division on both sides).
+kernels and skip where there is no card; the others hold the plain
+versions, which the CPU runs, against numpy loops.
+
+Patch prep: validity must match exactly; the rest to 1e-6 (IEEE float32
+division on both sides).  The int8 conv: equal bit for bit, kernel and plain
+version alike (an exact integer sum, then the same float32 roundings in the
+same order).
 """
 
 import numpy as np
@@ -13,6 +17,7 @@ import pytest
 import torch
 
 from moonsuperresolution_tpu_torch.ops import patches as tp
+from moonsuperresolution_tpu_torch.ops import qconv as qc
 
 torch.set_num_threads(2)
 
@@ -102,3 +107,115 @@ def test_patches_kernel_refuses_cpu_fallback(cuda):
     img = torch.zeros((64, 64), device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         tp.extract_normalize_patches(img, img, (5, 5), 8, 32, NO_VALUE)
+
+
+# ----------------------------------------------------------- the int8 conv
+
+# (B, H, W, C, Cout): a ragged K (9 * 16 = 144 is not a multiple of the
+# kernel's 64-byte step), partial M and N tiles, two N tiles, and block 0 of
+# the generator at full width.
+QCONV_SHAPES = [(2, 12, 12, 16, 24), (3, 9, 7, 32, 40), (2, 16, 16, 128, 256),
+                (16, 8, 8, 1024, 1024)]
+# mode -> (acc dtype, out dtype, requantize to s8)
+QCONV_MODES = {
+    "int32-f32": (torch.int32, torch.float32, False),
+    "int32-bf16": (torch.int32, torch.bfloat16, False),
+    "bf16acc-bf16": (torch.bfloat16, torch.bfloat16, False),
+    "bf16acc-s8": (torch.bfloat16, torch.bfloat16, True),
+}
+
+
+def _qconv_inputs(rng, shape, requant):
+    """Uniform s8 codes; scales that make y about N(0, 1) (a product of two
+    uniform codes has a standard deviation of about 5418); an inverse scale
+    that clips beyond 3 sigma."""
+    b, h, w, c, n = shape
+    x = rng.integers(-127, 128, (b, h, w, c)).astype(np.int8)
+    wt = rng.integers(-127, 128, (n, 3, 3, c)).astype(np.int8)
+    s_x = np.float32(0.0123)
+    w_scale = (rng.uniform(0.5, 1.5, n) / (s_x * 5418 * np.sqrt(9 * c))
+               ).astype(np.float32)
+    bias = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    inv = np.full(n, 127 / 3, np.float32) if requant else None
+    return x, wt, s_x, w_scale, bias, inv
+
+
+def _as_torch(args, dev="cpu"):
+    x, wt, s_x, w_scale, bias, inv = args
+    t = [torch.from_numpy(a).to(dev) for a in (x, wt)]
+    t.append(torch.tensor(s_x, device=dev))
+    t += [torch.from_numpy(a).to(dev) for a in (w_scale, bias)]
+    t.append(None if inv is None else torch.from_numpy(inv).to(dev))
+    return t
+
+
+def _bf16(a):
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _qconv_numpy(args, acc_dtype, out_dtype):
+    """The int8 conv as an int64 numpy sum over the 9 taps, then the
+    epilogue in numpy float32 -> NHWC."""
+    x, wt, s_x, w_scale, bias, inv = args
+    b, h, w, c = x.shape
+    xp = np.zeros((b, h + 2, w + 2, c), np.int64)
+    xp[:, 1:-1, 1:-1] = x
+    acc = np.zeros((b, h, w, wt.shape[0]), np.int64)
+    for r in range(3):
+        for s in range(3):
+            acc += np.einsum("bhwc,nc->bhwn", xp[:, r : r + h, s : s + w],
+                             wt[:, r, s].astype(np.int64))
+    y = acc.astype(np.float32)
+    if acc_dtype == torch.bfloat16:
+        y = _bf16(y)
+    y = y * (s_x * w_scale) + bias
+    if inv is not None:
+        return np.clip(np.rint(y * inv), -127, 127).astype(np.int8)
+    return _bf16(y) if out_dtype == torch.bfloat16 else y
+
+
+def _nhwc(t):
+    assert t.is_contiguous(memory_format=torch.channels_last)
+    t = t.permute(0, 2, 3, 1).cpu()
+    return t.numpy() if t.dtype == torch.int8 else t.float().numpy()
+
+
+@pytest.mark.parametrize("mode", list(QCONV_MODES))
+def test_qconv_plain_matches_numpy(rng, mode):
+    acc, out, requant = QCONV_MODES[mode]
+    for shape in QCONV_SHAPES[:3]:
+        args = _qconv_inputs(rng, shape, requant)
+        got = qc.qconv(*_as_torch(args)[:5], acc, out, _as_torch(args)[5])
+        want = _qconv_numpy(args, acc, out)
+        assert got.dtype == (torch.int8 if requant else out)
+        np.testing.assert_array_equal(_nhwc(got), want)
+        if requant:
+            assert (np.abs(want) == 127).any() and (np.abs(want) < 127).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", list(QCONV_MODES))
+@pytest.mark.parametrize("shape", QCONV_SHAPES)
+def test_qconv_kernel_matches_plain(cuda, rng, shape, mode):
+    acc, out, requant = QCONV_MODES[mode]
+    args = _as_torch(_qconv_inputs(rng, shape, requant), cuda)
+    before = qc.qconv.launches
+    got = qc.qconv(*args[:5], acc, out, args[5])
+    torch.cuda.synchronize()
+    assert qc.qconv.launches == before + 1
+    want = qc.qconv_plain(*args[:5], acc, out, args[5])
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(_nhwc(got), _nhwc(want))
+
+
+@pytest.mark.gpu
+def test_qconv_kernel_refuses_what_it_does_not_take(cuda, rng):
+    """A CUDA tensor goes through the kernel or the call raises: a width
+    that is not a multiple of 16, or operands on two devices."""
+    args = _as_torch(_qconv_inputs(rng, (1, 4, 4, 8, 8), False), cuda)
+    with pytest.raises(ValueError, match="C % 16"):
+        qc.qconv(*args[:5], torch.int32, torch.float32)
+    args = _as_torch(_qconv_inputs(rng, (1, 4, 4, 16, 8), False), cuda)
+    args[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="one device"):
+        qc.qconv(*args[:5], torch.int32, torch.float32)
