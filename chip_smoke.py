@@ -10,13 +10,17 @@ prints no result.  Phases; any failure exits non-zero:
 
   1. The card's name and power limit (nvidia-smi), then every kernel of
      csrc/ built from source, one nvcc per source, all started together.
+     What ptxas says of the int8 conv (registers, spills, warnings) and its
+     shared memory are printed and kept; a spill store or a warning fails.
   2. Each kernel against its plain PyTorch version at the main path's
      shapes: agreement, kernel time, plain time and the card's bound.  The
-     int8 conv (csrc/qconv.cu) at every distinct shape of the int8
-     generator's 30 launches per chunk (batch 16, full width) and one small
-     width, in each epilogue mode (int32 sum, sum rounded to bf16, s8
-     requantize), equal to its plain version bit for bit; its yardstick is
-     the bf16 cuDNN conv of the same shape, which the port never calls.
+     int8 conv (csrc/qconv.cu: wgmma s8 tensor cores fed by a TMA ring from
+     a producer warp, on a persistent grid) at every distinct shape of the
+     int8 generator's 30 launches per chunk (batch 16, full width) and one
+     small width, in each epilogue mode (int32 sum, sum rounded to bf16, s8
+     requantize), equal to its plain version bit for bit; each row keeps
+     its time, its bound and its share of the bound; the yardstick is the
+     bf16 cuDNN conv of the same shape, which the port never calls.
   3. The main path: full-width GauGAN in bf16 (seeded random weights)
      through ``pad_inputs``, ``generate_tile_list``, ``run_tiles_serial`` and
      the commits over a synthetic raster of two production tiles (image
@@ -70,6 +74,7 @@ import concurrent.futures
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -124,6 +129,13 @@ def card_line():
 
 
 def build_all():
+    """Every kernel source built, one nvcc each, all started together.
+    Returns what ptxas said of the int8 conv when its library was built
+    (now, or before in this checkout): per instantiation its
+    registers, spills and barriers, any warning (a setmaxnreg that was
+    ignored, serialised wgmma), and its dynamic shared memory."""
+    import ctypes
+
     from moonsuperresolution_tpu_torch import build
 
     names = build.sources()
@@ -131,11 +143,23 @@ def build_all():
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         logs = dict(zip(names, pool.map(build.build, names)))
     for name, log in logs.items():
-        print(f"[build] {name}: {log.strip() or 'up to date'}",
-              file=sys.stderr)
+        print(f"[build] {name}: {log.strip()}", file=sys.stderr)
     print(f"[build] {len(names)} kernel sources in "
           f"{time.perf_counter() - t0:.2f} s: {', '.join(names)}")
-    return names
+    ptxas = [line.strip() for line in logs["qconv"].splitlines()
+             if any(key in line for key in ("Compiling entry", "registers",
+                                            "spill", "smem", "warning"))]
+    fn = build.load("qconv").qconv3x3_s8_smem_bytes
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    ptxas.append(f"dynamic shared memory: {fn()} bytes")
+    for line in ptxas:
+        print(f"[build] qconv ptxas: {line}")
+    spills = [int(n) for line in ptxas
+              for n in re.findall(r"(\d+) bytes spill stores", line)]
+    check(len(spills) == 3 and not any(spills)
+          and not any("warning" in line.lower() for line in ptxas),
+          "qconv: ptxas reports spill stores or a warning")
+    return ptxas
 
 
 # ----------------------------------------------------------------- phase 2
@@ -287,7 +311,8 @@ def qconv_case(dev, seed):
                 tops=2 * b * s * s * n * 9 * c / ms / 1e9, plain_ms=plain,
                 library_ms=lib_ms, max_abs_err=err))
             print(f"[qconv] {rows[-1]['shape']:24s} {mode:17s} {ms:9.4f} ms"
-                  f" (bound {bound:.4f} {by}, {rows[-1]['tops']:.0f} TOP/s)"
+                  f" (bound {bound:.4f} {by}, {100 * bound / ms:.1f} % of "
+                  f"it, {rows[-1]['tops']:.0f} TOP/s)"
                   f"  bf16 conv {lib_ms:.4f} ms  plain "
                   f"{'-' if plain is None else f'{plain:.2f}'} ms",
                   file=sys.stderr)
@@ -1028,7 +1053,7 @@ def main(argv=None):
     try:
         card = card_line()
         print(f"card: {card}")
-        build_all()
+        qconv_ptxas = build_all()
 
         phase = "2 kernels vs plain"
         kernels = [patches_case(dev, args.seed), qconv_case(dev, args.seed)]
@@ -1110,6 +1135,7 @@ def main(argv=None):
                                  "bound_ms", "bound_by", "library_ms")}
         for k in kernels]}
     qrows = kernels[1]["rows"]
+    stats["qconv_ptxas"] = qconv_ptxas
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "stats": stats, "qconv_rows": qrows,

@@ -13,7 +13,9 @@ CUDA kernels.
 
 A library is rebuilt when its source is newer; a build writes to a
 temporary name and renames it, so concurrent builds never load a
-half-written file.  A failed build raises.
+half-written file.  The compiler's output is kept beside the library
+(``_build/lib<name>.log``), so that a library built before reports what
+ptxas said of it all the same.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -63,33 +65,43 @@ def gxx() -> str:
     return found
 
 
+def log_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.log")
+
+
 def _compile(src: str, name: str, cmd: list[str]) -> str:
-    out = lib_path(name)
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
-        return ""
+    out, log = lib_path(name), log_path(name)
+    if os.path.exists(out) and os.path.exists(log) \
+            and os.path.getmtime(out) >= os.path.getmtime(src):
+        with open(log) as f:
+            return f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run([*cmd, "-o", tmp, src], capture_output=True,
-                          text=True)
+    tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run([*cmd, "-o", f"{out}.{tag}", src],
+                          capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"{cmd[0]} failed on {src}:\n"
                            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    text = proc.stdout + proc.stderr
+    with open(f"{log}.{tag}", "w") as f:
+        f.write(text)
+    os.replace(f"{log}.{tag}", log)   # the log first: a library that is up
+    os.replace(f"{out}.{tag}", out)   # to date always has its log
+    return text
 
 
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library is up to date.  Returns
-    the compiler's output (register and shared-memory use per kernel), or
-    "" when nothing was built."""
+    the compiler's output (register, spill and shared-memory use per
+    kernel) of the build that made the library, now or before."""
     return _compile(os.path.join(CSRC_DIR, f"{name}.cu"), name,
                     [nvcc(), *NVCC_FLAGS])
 
 
 def build_host(name: str) -> str:
     """Compile the host library ``csrc/<name>.cpp`` with g++ unless it is
-    up to date; returns the compiler's output, or "" when nothing was
-    built."""
+    up to date; returns the compiler's output of the build that made the
+    library."""
     return _compile(os.path.join(CSRC_DIR, f"{name}.cpp"), name,
                     [gxx(), *GXX_FLAGS])
 

@@ -3,21 +3,27 @@ quantized generator (counterpart of the conv in
 moonsuperresolution_tpu/models/quant.py::_qconv).
 
 ``qconv`` launches the hand-written CUDA kernel ``csrc/qconv.cu`` (s8 x s8
-implicit GEMM on the tensor cores, exact int32 accumulation, fused
-epilogue) for CUDA tensors and runs its plain PyTorch version,
-``qconv_plain``, for CPU tensors.  There is no fallback from the one to the
-other: a CUDA tensor either goes through the kernel or the call raises.
+implicit GEMM on Hopper's wgmma tensor cores, operands gathered by TMA
+through a warp-specialised ring, a persistent grid, exact int32
+accumulation, fused epilogue) for CUDA tensors and runs its plain PyTorch
+version, ``qconv_plain``, for CPU tensors.  There is no fallback from the
+one to the other: a CUDA tensor either goes through the kernel or the call
+raises.
 
-The kernel takes any C that is a multiple of 16 (the width of one 16-byte
-copy; a K = 9*C that is not a multiple of the kernel's 64-byte step is
-zero-filled) and any Cout that is a multiple of 8; ``qconv`` raises on
-anything else for a CUDA tensor.  The plain version takes any width.  The
-generator's full widths (C = 128 to 1024) are multiples of 128.
+The kernel takes any C that is a multiple of 16 (a tensor map's row stride
+is a multiple of 16 bytes; channels past C in the kernel's 128-channel K
+step are zero-filled) and any Cout that is a multiple of 8; ``qconv``
+raises on anything else for a CUDA tensor.  The plain version takes any
+width.  The generator's full widths (C = 128 to 1024) are multiples of 128.
+
+``pixel_box`` chooses the box of 128 output pixels that one tile of the
+kernel covers; the kernel derives its grid of tiles from it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +33,29 @@ from moonsuperresolution_tpu_torch import build
 ACC_DTYPES = (torch.int32, torch.bfloat16)
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+BOX_PIXELS = 128   # output pixels per tile: two m64 wgmma rows
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+def pixel_box(h: int, w: int) -> tuple[int, int, int]:
+    """The box ``(bB, bH, bW)`` of 128 output pixels that one kernel tile
+    covers in an output of ``h x w`` images: as wide as W allows (up to 128), then
+    as tall as H allows, then over as many images as the rest (1 x 1 x 128
+    for W >= 128, ..., 2 x 8 x 8 for 8 x 8 maps).  csrc/qconv.cu tiles each
+    image with it from the corner (pixels of a box past the image are
+    computed on zeros and masked), 128 channels a tile."""
+    bw = min(BOX_PIXELS, _pow2_at_least(w))
+    bh = min(BOX_PIXELS // bw, _pow2_at_least(h))
+    return BOX_PIXELS // (bw * bh), bh, bw
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check(x, w, scale_x, w_scale, bias, acc_dtype, out_dtype,
@@ -87,7 +116,7 @@ def _lib():
     fn = lib.qconv3x3_s8
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, *[i] * 11, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -133,15 +162,21 @@ def qconv(x_s8_nhwc, w_s8, scale_x, w_scale, bias, acc_dtype, out_dtype,
     kind = torch.int8 if out_scale_inv is not None else out_dtype
     dev = x_s8_nhwc.device
     out = torch.empty((b, h, wd, n), dtype=kind, device=dev)
+    box = pixel_box(h, wd)
     with torch.cuda.device(dev):
         err = lib.qconv3x3_s8(
             x_s8_nhwc.data_ptr(), w_s8.data_ptr(), scale_x.data_ptr(),
             w_scale.data_ptr(), bias.data_ptr(),
             None if out_scale_inv is None else out_scale_inv.data_ptr(),
             out.data_ptr(), b, h, wd, c, n, int(acc_dtype == torch.bfloat16),
-            _OUT_KIND[kind], torch.cuda.current_stream(dev).cuda_stream)
+            _OUT_KIND[kind], *box, _sm_count(dev),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"qconv: CUDA error {err}")
+        raise RuntimeError(
+            f"qconv: error {err} (a cudaError_t; 90001 a pixel box the "
+            f"kernel refuses, 90002 no tensor-map encoder in the driver, "
+            f"91000 + a CUresult a refused tensor map) for x "
+            f"{tuple(x_s8_nhwc.shape)}, Cout {n}, pixel box {box}")
     qconv.launches += 1
     return out.permute(0, 3, 1, 2)
 

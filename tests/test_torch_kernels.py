@@ -111,11 +111,15 @@ def test_patches_kernel_refuses_cpu_fallback(cuda):
 
 # ----------------------------------------------------------- the int8 conv
 
-# (B, H, W, C, Cout): a ragged K (9 * 16 = 144 is not a multiple of the
-# kernel's 64-byte step), partial M and N tiles, two N tiles, and block 0 of
-# the generator at full width.
+# (B, H, W, C, Cout): narrow channels (C = 16 and 32 fill a fraction of the
+# kernel's 128-channel K step), images that are not a whole number of pixel
+# boxes, partial N tiles, two N tiles, block 0 of the generator at full
+# width (conv, and gamma/beta: a box spanning two images), W over 128 with
+# a partial channel slice (C = 48) and an s8 row of N % 16 != 0 bytes, and
+# N = 8.
 QCONV_SHAPES = [(2, 12, 12, 16, 24), (3, 9, 7, 32, 40), (2, 16, 16, 128, 256),
-                (16, 8, 8, 1024, 1024)]
+                (16, 8, 8, 1024, 1024), (16, 8, 8, 128, 2048),
+                (2, 33, 130, 48, 136), (1, 20, 20, 64, 8)]
 # mode -> (acc dtype, out dtype, requantize to s8)
 QCONV_MODES = {
     "int32-f32": (torch.int32, torch.float32, False),
@@ -206,6 +210,86 @@ def test_qconv_kernel_matches_plain(cuda, rng, shape, mode):
     want = qc.qconv_plain(*args[:5], acc, out, args[5])
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(_nhwc(got), _nhwc(want))
+
+
+def _plan_shapes():
+    """The 18 distinct shapes of the int8 generator's main path, phase 2's
+    small width and the shapes above, as (B, H, W, C, Cout)."""
+    from chip_smoke import SMALL_QCONV, generator_qconvs
+
+    main = sorted({(b, s, s, c, n) for _, b, s, c, n in generator_qconvs()})
+    assert len(main) == 18
+    b, s, c, n = SMALL_QCONV
+    return main + [(b, s, s, c, n)] + QCONV_SHAPES
+
+
+@pytest.mark.parametrize("shape", _plan_shapes(), ids=str)
+def test_qconv_tile_plan_covers_each_pixel_and_k_step_once(shape):
+    """``pixel_box``'s box, tiled as csrc/qconv.cu tiles it, covers every
+    output pixel and channel exactly once, and the kernel's K steps (9 taps
+    of 128-channel slices) every k of 9 C exactly once.  The walk below is
+    an explicit mirror of the kernel's formulas: the grid and tile count of
+    ``qconv3x3_s8`` and the decoding of ``tile_at`` (N tiles fastest)."""
+    b, h, w, c, n = shape
+    bb, bh, bw = qc.pixel_box(h, w)
+    assert bb * bh * bw == qc.BOX_PIXELS and max(bb, bh, bw) <= 256
+    bn = bk = 128                                      # kBN, kBK
+    grid_h, grid_w, n_tiles = -(-h // bh), -(-w // bw), -(-n // bn)
+    tiles = -(-b // bb) * grid_h * grid_w * n_tiles
+    cover = np.zeros((b, h, w), np.int32)
+    cols = np.zeros(n, np.int32)
+    for t in range(tiles):
+        m = t // n_tiles
+        n0 = (t - m * n_tiles) * bn
+        w0 = m % grid_w * bw
+        h0 = m // grid_w % grid_h * bh
+        b0 = m // (grid_w * grid_h) * bb
+        if n0 == 0:
+            cover[b0 : b0 + bb, h0 : h0 + bh, w0 : w0 + bw] += 1
+        if m == 0:
+            cols[n0 : n0 + bn] += 1
+    assert (cover == 1).all() and (cols == 1).all()
+    k = np.zeros(9 * c, np.int32)
+    for tap in range(9):
+        for c0 in range(0, c, bk):
+            k[tap * c + c0 : tap * c + min(c0 + bk, c)] += 1
+    assert (k == 1).all()
+
+
+def test_qconv_bf16_rounding_identity():
+    """csrc/qconv.cu rounds float(acc) to bf16 on the integer pipe:
+    (u + 0x7FFF + (u >> 16 & 1)) & 0xFFFF0000 on the float's bits.  Equal
+    to PyTorch's round-to-nearest-even cast for every int32 sum the kernel
+    can hold (|acc| <= 9 * 1024 * 127^2 < 2^28), ties included."""
+    rng = np.random.default_rng(1)
+    acc = np.concatenate([
+        rng.integers(-(2 ** 28), 2 ** 28, 1 << 20),
+        np.arange(-70000, 70000),                     # every small sum
+        (rng.integers(1, 2 ** 12, 4096) << 16) + 0x8000,  # bf16 ties
+    ]).astype(np.int32)
+    a = acc.astype(np.float32)
+    u = a.view(np.uint32).astype(np.uint64)
+    got = (((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+           .view(np.float32))
+    want = torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_qconv_requantize_identity():
+    """csrc/qconv.cu requantizes as the low byte of the bits of
+    clip(y * inv, -127, 127) + 1.5 * 2^23 (float32 round to nearest even):
+    equal to clip(rint(y * inv), -127, 127) as int8, halves and the clip's
+    edges included."""
+    rng = np.random.default_rng(2)
+    v = np.concatenate([
+        rng.standard_normal(1 << 20).astype(np.float32) * 60,
+        np.arange(-300, 300, 0.5, dtype=np.float32),   # every tie
+        np.float32([127.49, 127.5, -127.5, -127.51, 1e9, -1e9]),
+    ]).astype(np.float32)
+    bits = (np.clip(v, -127, 127) + np.float32(12582912.0)).view(np.uint32)
+    got = (bits & 0xFF).astype(np.uint8).view(np.int8)
+    want = np.clip(np.rint(v), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.gpu
