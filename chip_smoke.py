@@ -61,6 +61,20 @@ prints no result.  Phases; any failure exits non-zero:
      Each map run is driven with the launch counters set to 0 and read
      after; every kernel of its path must have launched.
 
+  6. Training (no kernel of csrc/ runs on this path; the launch counts
+     of the timed steps must stay 0):
+     a. spade_256 at full width (GauGAN, image 256, batch 16, default
+        widths, float32 parameters) on the port's SyntheticSampler, in
+        float32 compute (TF32 off) and in bf16: 2 warm-up steps, 5 timed
+        to a host readback of the losses; ms/step, samples/s, peak memory,
+        model TFLOP/s (FlopCounterMode over one step), one step profiled
+        (device ms by kind, idle share); every loss finite and the
+        encoder, generator and discriminator all moved;
+     b. ``train`` (loop, validation, checkpoint) at a small width, the
+        checkpoint restored bit for bit, then ``resume=True``: step 2 -> 4;
+     c. one step of a small float32 gaugan trainer, card against CPU from
+        the same weights, batch and latent noise (see train_card_vs_cpu).
+
 The line before the last is the kernels' JSON record (launches summed over
 phase 3's tile loops and every map run); the last line is
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes the whole
@@ -491,7 +505,10 @@ def main_path(dev, seed, kernels):
 
 KERNEL_KINDS = (  # (category, substrings of the CUDA kernel's name)
     ("int8 conv (csrc/qconv.cu)", ("qconv3x3",)),
-    ("conv/gemm", ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad")),
+    ("optimizer (Adam)", ("multi_tensor_apply", "adam")),
+    # cuDNN's FFT convolutions: fft kernels and the complex products.
+    ("conv/gemm", ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad",
+                   "fft", "_complex")),
     ("fold (col2im)", ("col2im", "im2col")),
     ("patch prep (csrc/patches.cu)", ("patches_block_minmax",
                                       "patches_normalize")),
@@ -509,12 +526,40 @@ def kernel_kind(name):
     return "other"
 
 
+def profile_device(fn, what):
+    """``fn()`` once under the profiler: device ms by kind of kernel, the
+    wall time to a synchronise, the busy ms and the number of device
+    kernels; the top kernels go to stderr."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kind, rows = {}, []
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kind = kernel_kind(ev.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+            rows.append((us / 1e3, ev.count, kind, ev.key))
+    print(f"[profile] {what}, top device kernels (ms, calls, kind):",
+          file=sys.stderr)
+    for ms, count, kind, key in sorted(rows, reverse=True)[:20]:
+        print(f"[profile] {ms:10.3f} {count:6d}  {kind:28s} {key[:110]}",
+              file=sys.stderr)
+    by_kind = dict(sorted(by_kind.items(), key=lambda kv: -kv[1]))
+    return by_kind, wall, sum(by_kind.values()), sum(r[1] for r in rows)
+
+
 def full_tile(eng, fpp, seed, kernels, reps=3):
     """An interior tile (all 529 patches valid): its time, each kernel's
     launches per tile, and a profile of one more run: device time by kind
     of kernel, and the card's idle share of the tile's wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     eng.img_padded, eng.dem_padded = valid_slabs(eng.geom.slab, seed)
     for k in kernels:
@@ -525,25 +570,8 @@ def full_tile(eng, fpp, seed, kernels, reps=3):
         eng.process_tile(0, 0)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        t0 = time.perf_counter()
-        eng.process_tile(0, 0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_kind, rows = {}, []
-    for ev in prof.key_averages():
-        us = ev.self_device_time_total
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kind = kernel_kind(ev.key)
-            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
-            rows.append((us / 1e3, ev.count, kind, ev.key))
-    busy = sum(by_kind.values())
-    print("[profile] one interior tile, top device kernels (ms, calls, kind):",
-          file=sys.stderr)
-    for ms, count, kind, key in sorted(rows, reverse=True)[:20]:
-        print(f"[profile] {ms:10.3f} {count:6d}  {kind:28s} {key[:110]}",
-              file=sys.stderr)
+    by_kind, wall, busy, _ = profile_device(
+        lambda: eng.process_tile(0, 0), "one interior tile")
     n = eng.geom.grid ** 2
     tile_s = sum(times) / len(times)
     return dict(
@@ -555,8 +583,7 @@ def full_tile(eng, fpp, seed, kernels, reps=3):
         full_tile_bf16_peak_share=n * fpp / tile_s / H100_BF16_FLOPS,
         profiled_tile_s=wall, device_busy_ms=busy,
         device_idle_share=max(0.0, 1 - busy / 1e3 / wall),
-        device_ms_by_kind=dict(sorted(by_kind.items(),
-                                      key=lambda kv: -kv[1])))
+        device_ms_by_kind=by_kind)
 
 
 def rel_rmse(got, want):
@@ -1026,6 +1053,253 @@ def full_map(dev, model, kernels, seed):
     return stats
 
 
+# ----------------------------------------------------------------- phase 6
+
+# The small trainer of 6b and 6c (image 64, the test plan, widths 16).
+TRAIN_SMALL = dict(image_size=64, latent_dim=16,
+                   channel_plan=(64, 64, 32, 32, 16, 8), encoder_filters=16,
+                   disc_filters=16)
+TRAIN_TIMED, TRAIN_WARMUP = 5, 2
+
+
+def synthetic_batches(size, batch, n, seed, dev):
+    """``n`` batches of the port's SyntheticSampler as NCHW tensors."""
+    from moonsuperresolution_tpu_torch.data.sampler import SyntheticSampler
+    from moonsuperresolution_tpu_torch.train.loop import to_device
+
+    return [(to_device(x, dev), to_device(y, dev)) for x, y in
+            SyntheticSampler(hw=size, seed=seed).batches(batch, n)]
+
+
+def groups_moved(before, after):
+    """Which of encoder, generator, discriminator changed."""
+    return {g: any(not bool((after[k] == v).all())
+                   for k, v in before.items() if k.startswith(g + "."))
+            for g in ("encoder", "generator", "discriminator")}
+
+
+def train_full_width(dev, seed, kernels, compute_dtype):
+    """6a: spade_256 at full width (GauGAN, image 256, batch 16, default
+    widths, float32 parameters) in ``compute_dtype``: 2 warm-up steps, 5
+    timed steps to a host readback of their losses, model FLOPs of one step
+    (``FlopCounterMode``), one step profiled.  Fails unless every loss is
+    finite and all three groups moved; counts launches of the kernels
+    (none may launch on this path)."""
+    import dataclasses
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from moonsuperresolution_tpu_torch.config import RECIPES
+    from moonsuperresolution_tpu_torch.train.trainers import make_trainer
+
+    cfg = RECIPES["spade_256"]
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype=compute_dtype))
+    m = cfg.model
+    tr = make_trainer(cfg, device=dev).init(
+        torch.Generator(dev).manual_seed(seed))
+    gen = torch.Generator(dev).manual_seed(seed)
+    batches = synthetic_batches(m.image_size, cfg.batch_size, 2, seed, dev)
+    before = {k: v.clone() for k, v in tr.nets.state_dict().items()}
+
+    def step(i):
+        return tr.train_step(*batches[i % 2], generator=gen)[0]
+
+    for i in range(TRAIN_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed():
+        out = [step(i) for i in range(TRAIN_TIMED)]
+        return [{k: float(v) for k, v in o.items()} for o in out]
+
+    t0 = time.perf_counter()
+    losses, launches = counted_run(kernels, timed, [], "training")
+    dt = (time.perf_counter() - t0) / TRAIN_TIMED
+    check(not any(launches.values()),
+          f"training launched a TPU-kernel port: {launches}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(v) for o in losses for v in o.values()),
+          f"{compute_dtype} training: a loss is not finite: {losses[-1]}")
+    moved = groups_moved(before, tr.nets.state_dict())
+    check(all(moved.values()), f"{compute_dtype} training: moved {moved}")
+    del before
+    with FlopCounterMode(display=False) as fc:
+        step(0)
+    flops = fc.get_total_flops()
+    by_kind, wall, busy, n_kernels = profile_device(
+        lambda: step(1), f"one full-width {compute_dtype} training step")
+    params = sum(p.numel() for p in tr.nets.parameters())
+    out = dict(ms_per_step=dt * 1e3, samples_per_s=cfg.batch_size / dt,
+               peak_mem_gib=peak / 2 ** 30, params=params,
+               tflop_per_step=flops / 1e12,
+               model_tflop_per_s=flops / dt / 1e12,
+               profiled_step_s=wall, device_busy_ms=busy,
+               device_idle_share=max(0.0, 1 - busy / 1e3 / wall),
+               device_kernels_per_step=n_kernels,
+               device_ms_by_kind=by_kind, last_losses=losses[-1],
+               launches=launches)
+    del tr, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_loop_resume(dev, seed):
+    """6b: ``train`` on the card at a small width for one epoch of 2 steps,
+    the checkpoint restored into a fresh trainer (bit for bit), then
+    ``resume=True`` for a second epoch: the step goes on from 2 to 4."""
+    import dataclasses
+
+    import torch
+
+    from moonsuperresolution_tpu_torch.config import ModelConfig, TrainConfig
+    from moonsuperresolution_tpu_torch.train.loop import train
+    from moonsuperresolution_tpu_torch.train.trainers import make_trainer
+    from moonsuperresolution_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as td:
+        cfg = TrainConfig(model=ModelConfig(**TRAIN_SMALL), batch_size=4,
+                          epochs=1, output_path=td, seed=seed)
+        tr, history = train(cfg, synthetic=True, max_steps_per_epoch=2,
+                            log=False, device=dev)
+        fresh = make_trainer(cfg, device=dev)
+        gen = torch.Generator(dev)
+        step = restore_checkpoint(os.path.join(td, "checkpoints",
+                                               "latest.pt"), fresh, gen)
+        check(step == tr.step == 2, f"loop: step {tr.step}, restored {step}")
+        saved = tr.nets.state_dict()
+        check(all(torch.equal(v, saved[k])
+                  for k, v in fresh.nets.state_dict().items()),
+              "loop: restored weights differ from the saved ones")
+        for opt in ("gen_opt", "disc_opt"):
+            a = getattr(tr, opt).state_dict()["state"]
+            b = getattr(fresh, opt).state_dict()["state"]
+            check(all(torch.equal(v, b[i][k]) for i, st in a.items()
+                      for k, v in st.items()),
+                  f"loop: restored {opt} state differs")
+        tr2, history2 = train(dataclasses.replace(cfg, epochs=2),
+                              resume=True, synthetic=True,
+                              max_steps_per_epoch=2, log=False, device=dev)
+        check(tr2.step == 4 and [h["epoch"] for h in history2] == [1],
+              f"resume: step {tr2.step}, epochs {history2}")
+        check(all(np.isfinite(v) for h in history + history2
+                  for part in ("train", "val") for v in h[part].values()),
+              "loop: a loss is not finite")
+    return dict(loop_val_gen_loss=history2[0]["val"]["gen_loss"],
+                loop_seconds=[h["seconds"] for h in history + history2])
+
+
+def adam_first_step(g, lr, eps):
+    """Adam's first update with beta1 = 0 (Keras settings): m = g, v = g^2."""
+    return -lr * g / (np.abs(g) + eps)
+
+
+def normalised_biases(m) -> list[str]:
+    """The generator biases whose gradient is zero in exact arithmetic, for
+    ModelConfig ``m``: every path from them to a loss passes a SPADE
+    normalisation, which removes any per-channel constant.  Each block's
+    ``conv_1`` bias (spade_2 normalises its output), the ``conv_2`` and
+    ``conv_3`` biases of a block whose output meets a normalisation on every
+    path to the head (only identity skips carry a block's output past the
+    next block), and the Dense bias where the Dense output is 1 x 1.  Their
+    gradients are rounding noise, which Adam (g / (|g| + eps)) turns into
+    moves of up to the learning rate in either direction, on the card as on
+    the CPU: 6c holds these to lr (1 + 1e-3)."""
+    plan = m.channel_plan
+    n = len(plan)
+    reaches = [True] * n    # block i's output reaches the head unnormalised
+    for i in range(n - 2, -1, -1):
+        reaches[i] = plan[i + 1] == plan[i] and reaches[i + 1]
+    names = []
+    for i, ch in enumerate(plan):
+        names.append(f"generator.resblock_{i}.conv_1.bias")
+        if not reaches[i]:
+            names.append(f"generator.resblock_{i}.conv_2.bias")
+            if i and ch != plan[i - 1]:
+                names.append(f"generator.resblock_{i}.conv_3.bias")
+    if m.image_size // 64 == 1 and not reaches[0]:
+        names.append("generator.dense.bias")
+    return names
+
+
+def train_card_vs_cpu(dev, seed):
+    """6c: one step of a small float32 gaugan trainer (image 64, latent 16,
+    plan 64-64-32-32-16-8, encoder and discriminator width 16, batch 4) on
+    the card and on the CPU, from the same weights, VGG19, batch and latent
+    noise, TF32 off.  Losses to rtol 1e-4.  Parameters: Adam's first step
+    is about lr times the sign of the gradient, so an element whose
+    gradient lies within float32 noise of zero moves by +lr on one side
+    and -lr on the other, and a plain atol 1e-5 cannot hold for every
+    element (the count beyond it and the largest difference are reported).
+    The bound: the card's update is within 1e-5 of Adam's step of some
+    gradient within 1e-4 |g| + 1e-3 max|g| (over its group) of the CPU's
+    own gradient; the biases whose gradient vanishes in exact arithmetic
+    (``normalised_biases``) move by at most lr.  Batch 4, not 2: at batch 2
+    the first SPADE's moments over two 1 x 1 maps amplify float32 noise
+    about fifty-fold (tests/test_torch_train.py)."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.config import ModelConfig, TrainConfig
+    from moonsuperresolution_tpu_torch.models.vgg import init_vgg
+    from moonsuperresolution_tpu_torch.train.trainers import make_trainer
+
+    cfg = TrainConfig(model=ModelConfig(variant="gaugan", **TRAIN_SMALL),
+                      batch_size=4)
+    vgg = init_vgg(torch.Generator().manual_seed(seed))
+    cpu = make_trainer(cfg, vgg=vgg, device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    card = make_trainer(cfg, vgg=vgg, device=dev)
+    card.nets.load_state_dict(cpu.nets.state_dict())
+    start = {k: v.clone() for k, v in cpu.nets.state_dict().items()}
+    ((src, tgt),) = synthetic_batches(64, 4, 1, seed, "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    eps_d, eps_g = (torch.randn((4, 16), generator=gen) for _ in range(2))
+    want, _ = cpu.train_step(src, tgt, eps_d, eps_g)
+    got, _ = card.train_step(src.to(dev), tgt.to(dev), eps_d.to(dev),
+                             eps_g.to(dev))
+    loss_err = max(abs(float(got[k]) - float(v)) / abs(float(v))
+                   for k, v in want.items())
+    check(loss_err <= 1e-4, f"card vs CPU: losses differ by {loss_err} "
+          f"relative ({ {k: float(v) for k, v in got.items()} } against "
+          f"{ {k: float(v) for k, v in want.items()} })")
+
+    o, noisy = cfg.optimizer, set(normalised_biases(cfg.model))
+    card_params = {k: v.cpu() for k, v in card.nets.state_dict().items()}
+    grads = dict(cpu.nets.named_parameters())
+    gmax = {}
+    for name, p in grads.items():
+        if name not in noisy:
+            g = name.split(".")[0]
+            gmax[g] = max(gmax.get(g, 0.0), float(p.grad.abs().max()))
+    over, n, raw_max = 0, 0, 0.0
+    for name, p in grads.items():
+        g = p.grad.double().numpy()
+        lr = o.disc_lr if name.startswith("discriminator.") else o.gen_lr
+        u = (card_params[name].double() - start[name].double()).numpy()
+        diff = np.abs(card_params[name].numpy() - p.detach().numpy())
+        if name in noisy:
+            check(np.abs(u).max() <= lr * (1 + 1e-3),
+                  f"card vs CPU: {name} moved by {np.abs(u).max()}")
+            continue
+        over += int((diff > 1e-5).sum())
+        n += diff.size
+        raw_max = max(raw_max, float(diff.max()))
+        d = 1e-4 * np.abs(g) + 1e-3 * gmax[name.split(".")[0]]
+        lo = adam_first_step(g + d, lr, o.eps) - 1e-5
+        hi = adam_first_step(g - d, lr, o.eps) + 1e-5
+        check(bool(((lo <= u) & (u <= hi)).all()),
+              f"card vs CPU: {name}'s update is not Adam's step of a "
+              "gradient near the CPU's")
+    return dict(train_card_vs_cpu_loss_max_rel_err=loss_err,
+                train_card_vs_cpu_param_max_abs_diff=raw_max,
+                train_card_vs_cpu_params_over_1e5=over,
+                train_card_vs_cpu_params_checked=n)
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1122,6 +1396,37 @@ def main(argv=None):
         print("[full map] resizes, card against CPU, max abs err: " + ", ".join(
             f"{k} {v}"
             for k, v in stats["resize_card_vs_cpu_max_abs_err"].items()))
+
+        phase = "6 training"
+        for dtype in ("float32", "bfloat16"):
+            st = train_full_width(dev, args.seed, kernels, dtype)
+            stats[f"train_spade_256_{dtype}"] = st
+            print(f"[train] spade_256 full width ({st['params']} params), "
+                  f"batch 16, {dtype} compute, float32 parameters: "
+                  f"{st['ms_per_step']:.1f} ms/step = "
+                  f"{st['samples_per_s']:.2f} samples/s, "
+                  f"{st['tflop_per_step']:.2f} TFLOP/step = "
+                  f"{st['model_tflop_per_s']:.1f} TFLOP/s, peak memory "
+                  f"{st['peak_mem_gib']:.2f} GiB, card idle "
+                  f"{100 * st['device_idle_share']:.1f} % of a step "
+                  f"({st['device_kernels_per_step']} device kernels); losses "
+                  + " ".join(f"{k}={v:.4f}"
+                             for k, v in st["last_losses"].items()))
+            print(f"[train] {dtype} device ms by kind: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in st["device_ms_by_kind"].items()))
+        stats.update(train_loop_resume(dev, args.seed))
+        print(f"[train] loop and resume on the card: epochs of "
+              f"{', '.join(f'{t:.2f}' for t in stats['loop_seconds'])} s, "
+              f"restored state equal bit for bit, step 2 -> 4")
+        stats.update(train_card_vs_cpu(dev, args.seed))
+        print(f"[train] one step card against CPU: losses within "
+              f"{stats['train_card_vs_cpu_loss_max_rel_err']:.3g} relative; "
+              f"parameters within "
+              f"{stats['train_card_vs_cpu_param_max_abs_diff']:.3g}, "
+              f"{stats['train_card_vs_cpu_params_over_1e5']} of "
+              f"{stats['train_card_vs_cpu_params_checked']} beyond 1e-5 "
+              f"(Adam sign flips), every update Adam's step of a gradient "
+              f"near the CPU's")
     except Exception as e:  # any phase failing fails the run, with its trace
         import traceback
 

@@ -81,8 +81,9 @@ def load_model_fn(model_path: Optional[str], kind: str, image_size: int,
     then emits the low-res DEM channel unchanged, the reference's
     pipeline-fidelity dry run (process_full_tiles.py:139-143).  Otherwise
     ``model_path`` is an ``.npz`` of the JAX parameter tree
-    (``utils.convert.save_npz``).  ``model_kw`` sets other ModelConfig
-    fields (a smaller channel plan, say).
+    (``utils.convert.save_npz``); its ``encoder`` and ``generator`` load
+    strictly, a ``discriminator`` is left out.  ``model_kw`` sets other
+    ModelConfig fields (a smaller channel plan, say).
 
     ``quantize``: "none", or the int8 generator (``quantize_model``):
     "int8" with dynamic activation scales, "int8_static" with calibrated
@@ -98,7 +99,10 @@ def load_model_fn(model_path: Optional[str], kind: str, image_size: int,
     cfg = ModelConfig(variant=kind, image_size=image_size,
                       latent_dim=latent_dim, compute_dtype=compute_dtype,
                       **model_kw)
-    model = load_params(GauGAN(cfg), model_path)
+    # A training run's tree holds the discriminator too, which inference
+    # leaves out.
+    model = load_params(GauGAN(cfg), model_path,
+                        subtrees=("encoder", "generator"))
     if quantize != "none":
         return quantize_model(model, quantize, compute_dtype, int8_acc, dev)
     return model.to(device=dev, dtype=DTYPES[compute_dtype]).eval()

@@ -1,8 +1,8 @@
-"""The inference part of the GauGAN family: encoder + generator + the
+"""The generating part of the GauGAN family: encoder + generator + the
 variant's latent rule (counterpart of moonsuperresolution_tpu/train/
 trainers.py::GauGANTrainer._latent and _generate), and its int8 twin (the
-JAX engine's ``quantize="int8"`` model, infer/engine.py:85-147).  Training,
-losses and the discriminator belong to a later slice of the port."""
+JAX engine's ``quantize="int8"`` model, infer/engine.py:85-147).  The
+trainer (train/trainers.py) holds a ``GauGAN`` beside the discriminator."""
 
 from __future__ import annotations
 
@@ -29,9 +29,11 @@ class GauGAN(nn.Module):
 
     gaugan samples z = mean + exp(0.5*logvar) * eps; gaugan_no_kl and
     cnn_spade use the deterministic z = mean + logvar (reference:
-    model.py:153-154, 727-728).  Build it in float32, load or initialise the
-    weights, then cast it to the compute dtype with ``.to(dtype)``:
-    parameters in the compute dtype are what the JAX modules cast theirs to.
+    model.py:153-154, 727-728).  Build it in float32 and load or initialise
+    the weights.  It computes in ``cfg.compute_dtype`` either way: held in
+    float32 (training, mixed precision as flax's ``dtype=``), or cast with
+    ``.to(dtype)`` for inference, which the modules' casts then leave as it
+    is.
     """
 
     def __init__(self, cfg: ModelConfig):

@@ -1,11 +1,15 @@
 """Core layers of the SPADE model family as torch modules (counterpart of
 moonsuperresolution_tpu/models/layers.py).
 
-Tensors are NCHW.  Each module computes in its ``dtype`` and keeps its
-parameters in it (the model is cast as a whole); statistics are taken in
-float32 or ``stats_dtype`` and cast explicitly, as the JAX modules do, rather
-than under autocast.  Submodule and parameter names follow the JAX
-parameter tree, so ``utils/convert.py`` maps one onto the other by name.
+Tensors are NCHW.  Each module computes in its ``dtype`` and casts its
+weights and biases to it where it uses them, as flax's ``dtype=`` does: a
+model held in float32 computes its convs and matmuls in bf16 (mixed-precision
+training, float32 parameters for Adam), and a model cast as a whole with
+``.to(bf16)`` (inference) computes the same, the casts being the identity.
+Statistics are taken in float32 or ``stats_dtype`` and cast explicitly, as
+the JAX modules do, rather than under autocast.  Submodule and parameter
+names follow the JAX parameter tree, so ``utils/convert.py`` maps one onto
+the other by name.
 
 Where PyTorch's defaults differ from the reference:
 - InstanceNorm's epsilon is 1e-3 (torch's InstanceNorm2d: 1e-5) and
@@ -75,14 +79,35 @@ def conv_same(x: torch.Tensor, weight: torch.Tensor, bias=None,
 
 
 class Conv(nn.Conv2d):
-    """Conv2d with XLA "SAME" padding (flax ``nn.Conv(padding="SAME")``)."""
+    """flax ``nn.Conv(dtype=...)``: input, kernel and bias cast to ``dtype``,
+    XLA "SAME" padding, or none with ``padding="VALID"``."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, dtype=torch.float32,
+                 padding: str = "SAME"):
         super().__init__(cin, cout, kernel, stride, bias=bias)
+        self.dtype = dtype
+        self.same = padding == "SAME"
 
     def forward(self, x):
-        return conv_same(x, self.weight, self.bias, self.stride[0])
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        if self.same:
+            return conv_same(x, w, b, self.stride[0])
+        return F.conv2d(x, w, b, self.stride[0])
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to
+    ``dtype``."""
+
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+        super().__init__(cin, cout)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
 
 
 class InstanceNorm(nn.Module):
@@ -169,16 +194,18 @@ class SPADE(nn.Module):
         self.stats = stats
         self.dtype = dtype
         self.stats_dtype = stats_dtype
-        self.conv = Conv(2, hidden, 3)
-        self.conv_gamma = Conv(hidden, filters, 3)
-        self.conv_beta = Conv(hidden, filters, 3)
+        self.conv = Conv(2, hidden, 3, dtype=dtype)
+        self.conv_gamma = Conv(hidden, filters, 3, dtype=dtype)
+        self.conv_beta = Conv(hidden, filters, 3, dtype=dtype)
 
     def forward(self, x, mask, normalized=None):
         mask = resize_nearest(mask, (x.shape[2], x.shape[3]))
-        h = F.relu(self.conv(mask.to(self.dtype)))
+        h = F.relu(self.conv(mask))
         gb = F.conv2d(
-            h, torch.cat([self.conv_gamma.weight, self.conv_beta.weight]),
-            torch.cat([self.conv_gamma.bias, self.conv_beta.bias]),
+            h, torch.cat([self.conv_gamma.weight,
+                          self.conv_beta.weight]).to(self.dtype),
+            torch.cat([self.conv_gamma.bias,
+                       self.conv_beta.bias]).to(self.dtype),
             padding=1)
         gamma, beta = gb[:, : self.filters], gb[:, self.filters :]
         if normalized is None:
@@ -201,12 +228,12 @@ class SpadeResidualBlock(nn.Module):
         self.stats_dtype = stats_dtype
         kw = dict(stats=stats, dtype=dtype, stats_dtype=stats_dtype)
         self.spade_1 = SPADE(in_filters, **kw)
-        self.conv_1 = Conv(in_filters, filters, 3)
+        self.conv_1 = Conv(in_filters, filters, 3, dtype=dtype)
         self.spade_2 = SPADE(filters, **kw)
-        self.conv_2 = Conv(filters, filters, 3)
+        self.conv_2 = Conv(filters, filters, 3, dtype=dtype)
         if filters != in_filters:
             self.spade_3 = SPADE(in_filters, **kw)
-            self.conv_3 = Conv(in_filters, filters, 3)
+            self.conv_3 = Conv(in_filters, filters, 3, dtype=dtype)
         else:
             self.spade_3 = self.conv_3 = None
 
@@ -235,12 +262,12 @@ class DownsampleBlock(nn.Module):
         super().__init__()
         self.alpha = alpha
         self.apply_activation = apply_activation
-        self.dtype = dtype
-        self.conv = Conv(cin, channels, kernel, strides, bias=False)
+        self.conv = Conv(cin, channels, kernel, strides, bias=False,
+                         dtype=dtype)
         self.norm = InstanceNorm(channels, dtype=dtype) if apply_norm else None
 
     def forward(self, x):
-        x = self.conv(x.to(self.dtype))
+        x = self.conv(x)
         if self.norm is not None:
             x = self.norm(x)
         if self.apply_activation:

@@ -1,10 +1,12 @@
-"""The SPADE encoder and generator (counterpart of
+"""The three SPADE-family networks (counterpart of
 moonsuperresolution_tpu/models/networks.py; reference:
 spade/models/networks.py).
 
-- ``Encoder``       : VAE encoder, 5 downsample blocks -> (mean, logvar)
-- ``SpadeGenerator``: latent -> Dense -> 6x [SPADE resblock + 2x nearest
-                      upsample] -> 4x4 conv head
+- ``Encoder``           : VAE encoder, 5 downsample blocks -> (mean, logvar)
+- ``SpadeGenerator``    : latent -> Dense -> 6x [SPADE resblock + 2x nearest
+                          upsample] -> 4x4 conv head
+- ``SpadeDiscriminator``: multi-scale PatchGAN returning every intermediate
+                          map, for feature matching
 
 Both Dense layers meet an NHWC flatten or reshape in the reference: the
 encoder flattens its last feature map as [B, H, W, C] and the generator
@@ -20,6 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from moonsuperresolution_tpu_torch.models.layers import (
+    Conv,
+    Dense,
     DownsampleBlock,
     SpadeResidualBlock,
     conv_same,
@@ -89,8 +93,8 @@ class Encoder(nn.Module):
         side = image_size
         for _ in range(5):
             side = -(-side // 2)
-        self.mean = nn.Linear(side * side * 8 * f, latent_dim)
-        self.variance = nn.Linear(side * side * 8 * f, latent_dim)
+        self.mean = Dense(side * side * 8 * f, latent_dim, dtype=dtype)
+        self.variance = Dense(side * side * 8 * f, latent_dim, dtype=dtype)
 
     def forward(self, x):
         for block in (self.down_0, self.down_1, self.down_2, self.down_3,
@@ -129,7 +133,7 @@ class SpadeGenerator(nn.Module):
         self.stats_dtype = stats_dtype
         self.subpixel_head = subpixel_head
         c0 = self.channel_plan[0]
-        self.dense = nn.Linear(latent_dim, self.sw * self.sw * c0)
+        self.dense = Dense(latent_dim, self.sw * self.sw * c0, dtype=dtype)
         cin = c0
         for i, ch in enumerate(self.channel_plan):
             self.add_module(f"resblock_{i}", SpadeResidualBlock(
@@ -140,7 +144,7 @@ class SpadeGenerator(nn.Module):
 
     def forward(self, latent, source):
         c0 = self.channel_plan[0]
-        x = self.dense(latent.to(self.dtype))
+        x = self.dense(latent)
         x = x.view(-1, self.sw, self.sw, c0).permute(0, 3, 1, 2)
         x_hat_up = None
         n_blocks = len(self.channel_plan)
@@ -153,12 +157,42 @@ class SpadeGenerator(nn.Module):
             x_hat_up = upsample2x_nearest(x_hat.to(self.dtype))
             x = upsample2x_nearest(x)
         x = F.leaky_relu(x, 0.2)
+        w, b = self.head.weight.to(self.dtype), self.head.bias.to(self.dtype)
         if self.subpixel_head:
-            x = subpixel_head_conv(x, self.head.weight, self.head.bias)
+            x = subpixel_head_conv(x, w, b)
         else:
-            x = conv_same(x, self.head.weight, self.head.bias)
+            x = conv_same(x, w, b)
         # DEM output in float32 for the denormalisation math.
         return x.float()
+
+
+class SpadeDiscriminator(nn.Module):
+    """Multi-scale PatchGAN discriminator (networks.py:60-76): source (2
+    channels) and target (1) concatenated on the channel axis, four
+    downsample blocks (f, 2f, 4f at stride 2, the first without norm; 8f at
+    stride 1, whose 4x4 SAME padding is 1 before and 2 after), then a 4x4
+    VALID conv to one logit map.  Returns the five maps in float32; the last
+    is the adversarial logit map, the others feed feature matching."""
+
+    def __init__(self, downsample_factor: int = 64, alpha: float = 0.2,
+                 dtype=torch.float32):
+        super().__init__()
+        f = downsample_factor
+        kw = dict(alpha=alpha, dtype=dtype)
+        self.down_0 = DownsampleBlock(3, f, 4, apply_norm=False, **kw)
+        self.down_1 = DownsampleBlock(f, 2 * f, 4, **kw)
+        self.down_2 = DownsampleBlock(2 * f, 4 * f, 4, **kw)
+        self.down_3 = DownsampleBlock(4 * f, 8 * f, 4, strides=1, **kw)
+        self.head = Conv(8 * f, 1, 4, dtype=dtype, padding="VALID")
+
+    def forward(self, source, target):
+        x = torch.cat([source, target], dim=1)
+        feats = []
+        for block in (self.down_0, self.down_1, self.down_2, self.down_3,
+                      self.head):
+            x = block(x)
+            feats.append(x)
+        return [f.float() for f in feats]
 
 
 def sample_latent(mean: torch.Tensor, logvar: torch.Tensor,

@@ -1,7 +1,8 @@
-"""Resizes the inference path needs (counterpart of
+"""Resizes of the inference and training paths (counterpart of
 moonsuperresolution_tpu/ops/resize.py, and of the OpenCV resizes of the JAX
 package's full-map preprocessing, infer/engine.py:216-244 and
-infer/lr_synth.py).
+infer/lr_synth.py, and of its synthetic training data, data/sampler.py).
+``area_downscale`` is the integer-factor box mean of the consistency loss.
 
 The port has no OpenCV.  The two cv2 resizes of the low-res DEM synthesis
 are reproduced with their OpenCV semantics:
@@ -119,6 +120,18 @@ def area_downscale4(x: torch.Tensor,
             b = tail[:, 4 * nw :]
             out[nh, nw] = _mean_of(_seq_sum(b), b.numel())
     return out
+
+
+def area_downscale(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Integer-factor box mean of ``[..., H, W]`` (H and W multiples of
+    ``factor``): the JAX package's reshape-mean (its ops/resize.py:199-208),
+    used by the consistency loss, and ``cv2.INTER_AREA`` at an integer ratio
+    up to float32 summation order."""
+    *lead, h, w = x.shape
+    if h % factor or w % factor:
+        raise ValueError(f"{h} x {w} is not a multiple of {factor}")
+    y = x.reshape(*lead, h // factor, factor, w // factor, factor)
+    return y.mean((-3, -1))
 
 
 # ------------------------------------------------------------ INTER_CUBIC

@@ -1,9 +1,13 @@
 """Carry the JAX package's weights across to the port.
 
-Input: the flax parameter tree of ``GauGANTrainer.init(...).params`` as
-numpy arrays (``jax.device_get`` of it), or a flat ``.npz`` whose keys are
-the tree paths joined with "/" (``save_npz`` writes one).  The port's
-modules carry the JAX names, so the mapping is by name:
+Input: a flax parameter tree as numpy arrays (``jax.device_get`` of it), or
+a flat ``.npz`` whose keys are the tree paths joined with "/" (``save_npz``
+writes one).  The tree of ``GauGANTrainer.init(...).params`` (``encoder``,
+``generator``, ``discriminator``) loads into the port trainer's ``nets``,
+its ``encoder`` and ``generator`` alone into a ``GauGAN`` (``load_params``'
+``subtrees``), and a VGG19 tree
+({``block1_conv1``: ...}) into ``models/vgg.py::VGG19Features``.  The
+port's modules carry the JAX names, so the mapping is by name:
 
 - conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in], both
   renamed ``kernel`` -> ``weight``;
@@ -11,13 +15,12 @@ modules carry the JAX names, so the mapping is by name:
 - SPADE's ``conv_gamma`` and ``conv_beta`` stay two parameters.
 
 The Dense layers' NHWC flatten and reshape are done in the forward pass
-(models/networks.py), so no Dense weight is permuted here.  A top-level
-``discriminator`` subtree is skipped: the port has no training yet.
+(models/networks.py), so no Dense weight is permuted here.
 
 ``export_params`` is the exact inverse of ``convert_params``: a model's
-weights back to the flat "/"-keyed JAX layout (OIHW -> HWIO, ``[out, in]``
--> ``[in, out]``, ``weight`` -> ``kernel``), float32, ready for
-``save_npz``.  With it a model built in the port (seeded random weights, say)
+weights (the discriminator's too) back to the flat "/"-keyed JAX layout
+(OIHW -> HWIO, ``[out, in]`` -> ``[in, out]``, ``weight`` -> ``kernel``),
+float32, ready for ``save_npz``.  With it a model built in the port (seeded random weights, say)
 travels through the same ``.npz`` a JAX checkpoint does.
 """
 
@@ -29,9 +32,6 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 from torch import nn
-
-SKIPPED = ("discriminator",)
-
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
     """Nested mapping -> {"a/b/c": array}; a flat "/"-keyed dict passes
@@ -59,8 +59,6 @@ def convert_params(params) -> dict[str, torch.Tensor]:
     state = {}
     for key, v in flatten_tree(params).items():
         *path, leaf = key.split("/")
-        if path and path[0] in SKIPPED:
-            continue
         if leaf == "kernel":
             v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
             leaf = "weight"
@@ -87,8 +85,16 @@ def export_params(model: nn.Module) -> dict[str, np.ndarray]:
     return flat
 
 
-def load_params(model: nn.Module, params) -> nn.Module:
+def load_params(model: nn.Module, params, subtrees=None) -> nn.Module:
     """Load converted weights with ``strict=True``: every parameter of the
-    model is filled and no converted key is left over."""
-    model.load_state_dict(convert_params(params), strict=True)
+    model is filled and no converted key is left over.  ``subtrees`` names
+    the top-level subtrees to take, the rest of the tree is left out first
+    (a GauGAN takes ``encoder`` and ``generator`` from a training run's
+    tree, which holds the ``discriminator`` too); strictness holds inside
+    them."""
+    state = convert_params(params)
+    if subtrees is not None:
+        state = {k: v for k, v in state.items()
+                 if k.split(".")[0] in subtrees}
+    model.load_state_dict(state, strict=True)
     return model

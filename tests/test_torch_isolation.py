@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX, nor the JAX package, nor
-OpenCV, and its entry points refuse to run on the CPU unless asked to."""
+OpenCV, nor (at import) matplotlib, h5py or tensorboardX, and its entry
+points refuse to run on the CPU unless asked to."""
 
 import json
 import os
@@ -9,12 +10,21 @@ import sys
 import pytest
 import torch
 
-from moonsuperresolution_tpu_torch.cli import merge_maps, process_full_tiles
-from moonsuperresolution_tpu_torch.config import DSRConfig
+from moonsuperresolution_tpu_torch.cli import (
+    merge_maps,
+    process_full_tiles,
+)
+from moonsuperresolution_tpu_torch.cli import train as cli_train
+from moonsuperresolution_tpu_torch.config import (
+    DSRConfig,
+    ModelConfig,
+    TrainConfig,
+)
 from moonsuperresolution_tpu_torch.infer.engine import (
     DEMSuperResolution,
     load_model_fn,
 )
+from moonsuperresolution_tpu_torch.train.loop import train
 
 torch.set_num_threads(2)
 
@@ -27,7 +37,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "cv2")
+                                    "cv2", "matplotlib", "h5py",
+                                    "tensorboardX")
              or m == "moonsuperresolution_tpu"
              or m.startswith("moonsuperresolution_tpu."))
 print(json.dumps({"modules": names, "bad": bad}))
@@ -35,7 +46,9 @@ print(json.dumps({"modules": names, "bad": bad}))
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """Nor cv2: the machine with the card has no OpenCV."""
+    """Nor cv2: the machine with the card has no OpenCV; nor matplotlib,
+    h5py or tensorboardX at import (the first two are absent there too;
+    the logger imports tensorboardX when asked to log)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                           text=True, timeout=120, cwd=root)
@@ -45,7 +58,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "geo.tiff", "geo.lzw",
                  "infer.fill", "infer.lr_synth", "infer.merge",
                  "infer.streaming", "cli.process_full_tiles",
-                 "cli.merge_maps"):
+                 "cli.merge_maps", "train.trainers", "train.loop", "losses",
+                 "models.vgg", "data.sampler", "utils.checkpoint",
+                 "utils.colorize", "ops.gradients", "cli.train"):
         assert f"moonsuperresolution_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -56,11 +71,20 @@ def no_card(monkeypatch):
 
 
 CFG = dict(image_size=64, stride=16, tile_size=128)
+TRAIN_CFG = TrainConfig(model=ModelConfig(image_size=64, latent_dim=16,
+                                          channel_plan=(16,) * 6,
+                                          encoder_filters=4, disc_filters=4),
+                        batch_size=2)
 
 
 def _enter(entry, tmp_path, cpu):
     dev = {"device": "cpu"} if cpu else {}
     flag = ["--device", "cpu"] if cpu else []
+    if entry == "train":
+        return train(TRAIN_CFG, synthetic=False, log=False, **dev)
+    if entry == "cli.train":
+        return cli_train.run(["--output_path", str(tmp_path), "--no_log",
+                               *flag])
     if entry == "engine":
         return DEMSuperResolution(DSRConfig(**CFG), **dev)
     if entry == "process_map":
@@ -74,7 +98,8 @@ def _enter(entry, tmp_path, cpu):
         "--tile_size", "128", *flag])
 
 
-ENTRIES = ["engine", "process_map", "load_model_fn", "process_full_tiles"]
+ENTRIES = ["engine", "process_map", "load_model_fn", "process_full_tiles",
+           "train", "cli.train"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -86,11 +111,16 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
 
 def test_cpu_only_when_asked(no_card, tmp_path):
     """With the CPU asked for, each entry point gets past the device; the
-    map entry points then fail only on what this empty directory lacks."""
+    map entry points then fail only on what this empty directory lacks,
+    and the training ones on the HDF5 dataset, a later slice (a synthetic
+    run on the CPU: tests/test_torch_train_loop.py)."""
     assert _enter("engine", tmp_path, cpu=True).device.type == "cpu"
     assert _enter("load_model_fn", tmp_path, cpu=True) is None
     for entry in ("process_map", "process_full_tiles"):
         with pytest.raises(ValueError, match="not found"):
+            _enter(entry, tmp_path, cpu=True)
+    for entry in ("train", "cli.train"):
+        with pytest.raises(NotImplementedError, match="TileSampler"):
             _enter(entry, tmp_path, cpu=True)
 
 
