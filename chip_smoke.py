@@ -42,7 +42,7 @@ prints no result.  Phases; any failure exits non-zero:
      agrees with the same tile on the CPU; a small float32 int8_static
      generator's quantize, calibration and static forward on the card
      agree with the same on the CPU.
-  5. Full map, through the port's CLIs (``main(argv)`` in this process) on
+  5. Full map, through the port's CLIs (``run(argv)`` in this process) on
      a synthetic 2048 x 3072 GeoTIFF pair (6 production tiles) with small
      fillable holes, a large hole and a nodata band:
      a. phase 3's seeded bf16 GauGAN, exported with ``export_params``,
@@ -74,9 +74,31 @@ prints no result.  Phases; any failure exits non-zero:
         checkpoint restored bit for bit, then ``resume=True``: step 2 -> 4;
      c. one step of a small float32 gaugan trainer, card against CPU from
         the same weights, batch and latent noise (see train_card_vs_cpu).
+  7. The real-data path, without h5py or OpenCV (it fails if either was
+     imported):
+     a. two tile stores written by the port's HDF5 writer and read back
+        equal byte for byte: ``build_h5_dataset`` from a synthetic region
+        pair (float32 DEM ``.img``, float32 ortho ``.npy`` shrunk onto the
+        DEM grid by INTER_AREA at 0.845), 8 tiles; and ``tile_pair`` of a
+        3000 x 8500 pair, 80 tiles of 1000 px, with this script's pickles:
+        64 to train on, 16 to validate;
+     b. ``TileSampler`` at hw 256 on the host: samples/s called directly
+        and through ``BatchPrefetcher``;
+     c. ``train(synthetic=False)``: spade_256 at full width in bf16 from the
+        store, one epoch (4 steps, one validation batch); ms per step over
+        steps 2-4 and the card's idle share there (profiled), beside phase
+        6a's bf16 step on batches already on the card; every loss finite,
+        every network moved, no kernel launched;
+     d. the epoch's ``epoch_0.pt`` served at image 256 (stride 32, tile
+        1024, batch 16): by ``load_model_fn`` and ``DEMSuperResolution``
+        over a synthetic raster of 2 tiles, and by the map CLI over phase
+        5's map; maps finite where covered and no_value elsewhere, the patch
+        kernel launched in each (counters set to 0 before, read after);
+     e. ``compare_maps`` of the served mean map against itself (rmse 0)
+        and against a copy 1 m higher (bias -1 within 1e-6).
 
 The line before the last is the kernels' JSON record (launches summed over
-phase 3's tile loops and every map run); the last line is
+phase 3's tile loops, every map run and phase 7d); the last line is
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes the whole
 record (every qconv shape's row) to FILE.
 """
@@ -374,9 +396,8 @@ PATCHES, QCONV = "extract_normalize_patches", "qconv3x3_s8"
 # ----------------------------------------------------------------- phase 3
 
 
-def synthetic_raster(h, w, seed):
-    """Smooth terrain with noise, an ortho shading of it, nodata on a band
-    and a hole."""
+def terrain(h, w, seed):
+    """Smooth terrain with noise and an ortho shading of it, float32."""
     rng = np.random.default_rng(seed)
     y, x = np.mgrid[0:h, 0:w].astype(np.float32)
     dem = (1500 + 300 * np.sin(x / 170) * np.cos(y / 230)
@@ -385,6 +406,12 @@ def synthetic_raster(h, w, seed):
     gy, gx = np.gradient(dem)
     img = (128 + 60 * np.tanh(gx - gy) + rng.standard_normal((h, w)) * 3
            ).astype(np.float32)
+    return img, dem
+
+
+def synthetic_raster(h, w, seed):
+    """``terrain`` with nodata on a band and a hole."""
+    img, dem = terrain(h, w, seed)
     dem[:, w - w // 4 :] = NO_VALUE              # a band of nodata
     img[h // 2 : h // 2 + h // 5, w // 8 : w // 8 + h // 5] = NO_VALUE  # a hole
     return img, dem
@@ -539,6 +566,15 @@ def profile_device(fn, what):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    by_kind, busy, n_kernels = device_summary(prof, what)
+    return by_kind, wall, busy, n_kernels
+
+
+def device_summary(prof, what):
+    """A finished profile: device ms by kind, busy ms and the number of
+    device kernels; the top kernels go to stderr."""
+    import torch
+
     by_kind, rows = {}, []
     for ev in prof.key_averages():
         us = ev.self_device_time_total
@@ -552,7 +588,7 @@ def profile_device(fn, what):
         print(f"[profile] {ms:10.3f} {count:6d}  {kind:28s} {key[:110]}",
               file=sys.stderr)
     by_kind = dict(sorted(by_kind.items(), key=lambda kv: -kv[1]))
-    return by_kind, wall, sum(by_kind.values()), sum(r[1] for r in rows)
+    return by_kind, sum(by_kind.values()), sum(r[1] for r in rows)
 
 
 def full_tile(eng, fpp, seed, kernels, reps=3):
@@ -871,7 +907,7 @@ def synthetic_map(td, seed):
 def run_cli(kernels, module, argv, what, need=(PATCHES,)):
     """One CLI run through ``counted_run``: returns its result and the
     launches of each kernel in it."""
-    return counted_run(kernels, lambda: module.main(argv), need,
+    return counted_run(kernels, lambda: module.run(argv), need,
                        f"the {what} map run")
 
 
@@ -1042,8 +1078,8 @@ def full_map(dev, model, kernels, seed):
                                            "--shard_index", str(i),
                                            "--num_shards", "2"] + flags,
                     f"identity {mode} shard {i}")
-            merge_maps.main(["--save_path", sh, "--map_name", "map",
-                             "--num_shards", "2"] + flags)
+            merge_maps.run(["--save_path", sh, "--map_name", "map",
+                            "--num_shards", "2"] + flags)
             same_files(os.path.join(td, mode), sh, f"{mode} shards")
 
         # d. the resizes of the map's preprocessing, card against CPU
@@ -1300,6 +1336,293 @@ def train_card_vs_cpu(dev, seed):
                 train_card_vs_cpu_params_checked=n)
 
 
+# ----------------------------------------------------------------- phase 7
+
+# 7a: one SLDEM-style region cut to 1536 x 2560 px (2 x 4 tiles), its ortho
+# at 0.845 of the size, as the 100 m WAC is onto the 256 px/deg grid.
+REGION_DEM = (1536, 2560)
+REGION_ORT = (1818, 3030)
+# 7a-c: the training store, 5 x 16 = 80 tiles of 1000 px: 64 to train on (4
+# steps of 16), 16 to validate (one batch).
+STORE_HW = (3000, 8500)
+STORE_TRAIN = 64
+SAMPLER_TIMED = 32
+# 7d: the trained model served at its own size, stride image / 8.
+SERVE_GEOM = dict(image_size=256, stride=32, tile_size=1024, batch_size=16)
+
+
+def store_equals(h5_path, tiles, what):
+    """Every dataset of the store read back by the port's reader equals
+    ``tiles`` (name -> array) byte for byte, and the store has no other."""
+    from moonsuperresolution_tpu_torch.data.hdf5 import H5Reader
+
+    with H5Reader(h5_path) as f:
+        check(sorted(f) == sorted(tiles), f"{what}: names differ")
+        for k, v in tiles.items():
+            got = f[k]
+            check(got.dtype == v.dtype and got.shape == v.shape
+                  and got.tobytes() == v.tobytes(), f"{what}: {k} differs")
+    return len(tiles)
+
+
+def build_stores(td, seed):
+    """7a: a store through ``build_h5_dataset`` from a region pair (a
+    float32 DEM ``.img`` and a float32 ortho ``.npy``), and the training
+    store through ``tile_pair`` with this script's pickles; both written by
+    the port's HDF5 writer and read back equal."""
+    import pickle
+
+    from moonsuperresolution_tpu_torch.data import h5_builder as hb
+    from moonsuperresolution_tpu_torch.data.hdf5 import H5Writer
+
+    key = hb.REGIONS[0]
+    rng = np.random.default_rng(seed)
+    data = os.path.join(td, "regions")
+    os.makedirs(data)
+    _, dem = terrain(*REGION_DEM, seed)
+    dem.tofile(os.path.join(data, hb.DEM_FILES[key]))
+    np.save(os.path.join(data, hb.ORT_FILES[key]),
+            (rng.random(REGION_ORT) * 255).astype(np.float32))
+    t0 = time.perf_counter()
+    h5_path, n_train, n_val = hb.build_h5_dataset(
+        data, os.path.join(td, "built"), regions=[key], seed=seed,
+        dem_rows=REGION_DEM[0])
+    build_s = time.perf_counter() - t0
+    want = {}
+    hb.tile_pair(*hb.load_pair(data, key, REGION_DEM[0]), key, want, {})
+    n_built = store_equals(h5_path, want, "build_h5_dataset's store")
+    check(n_train + n_val == n_built // 2 == 8,
+          f"build_h5_dataset: {n_train} + {n_val} tiles")
+
+    img, dem = terrain(*STORE_HW, seed + 1)
+    ort = np.clip(img, 0, 255).astype(np.uint8)
+    store = os.path.join(td, "store")
+    os.makedirs(store)
+    h5_path, dct, want = os.path.join(store, "MoonORTO2DEM.hdf5"), {}, {}
+    t0 = time.perf_counter()
+    with H5Writer(h5_path) as h5:
+        hb.tile_pair(ort, dem, "R", h5, dct)
+    write_s = time.perf_counter() - t0
+    hb.tile_pair(ort, dem, "R", want, {})
+    n = store_equals(h5_path, want, "tile_pair's store") // 2
+    check(n == 80, f"tile_pair: {n} tiles")
+    keys = list(dct)
+    paths = {}
+    for part, ks in (("train", keys[:STORE_TRAIN]),
+                     ("val", keys[STORE_TRAIN:])):
+        paths[part] = os.path.join(store, f"MoonORTO2DEM_{part}.pkl")
+        with open(paths[part], "wb") as f:
+            pickle.dump({k: dct[k] for k in ks}, f)
+    return (h5_path, paths["train"], paths["val"]), dict(
+        store_build_h5_dataset_s=build_s, store_tiles=n,
+        store_write_s=write_s,
+        store_bytes=os.path.getsize(h5_path))
+
+
+def sampler_rate(store, seed):
+    """7b: ``TileSampler`` at hw 256 on the host: samples/s called on this
+    thread, and through ``BatchPrefetcher`` as the loop drives it."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.data.sampler import (
+        BatchPrefetcher,
+        TileSampler,
+    )
+
+    s = TileSampler(store[0], store[1], hw=256, seed=seed)
+    keys = s.keys[:SAMPLER_TIMED]
+    s.sample(keys[0])                                   # warm-up
+    t0 = time.perf_counter()
+    for k in keys:
+        s.sample(k)
+    direct = SAMPLER_TIMED / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    n = sum(x.shape[0] for x, _ in BatchPrefetcher(s.batches(16), depth=4))
+    prefetched = n / (time.perf_counter() - t0)
+    s.close()
+    return dict(sampler_samples_per_s=direct,
+                sampler_prefetched_samples_per_s=prefetched,
+                sampler_torch_threads=torch.get_num_threads())
+
+
+def train_from_store(dev, seed, kernels, store, td):
+    """7c: ``train(synthetic=False)``, spade_256 at full width in bf16 from
+    the store, one epoch (4 steps, one validation batch).  Each step's
+    start is clocked; the steps after the first are profiled to the first
+    validation step (device busy time against the wall: the card's idle
+    share, the host sampler's pace included).  Every loss finite, every
+    network moved, no kernel of csrc/ launched; returns the epoch's
+    weights."""
+    import dataclasses
+    import glob
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from moonsuperresolution_tpu_torch.config import RECIPES, DataConfig
+    from moonsuperresolution_tpu_torch.train import loop
+
+    cfg = RECIPES["spade_256"]
+    cfg = dataclasses.replace(
+        cfg, epochs=1, seed=seed, output_path=os.path.join(td, "run"),
+        data=DataConfig(*store),
+        model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    clock = dict(starts=[], before=None, prof=None, end=None)
+    make_trainer = loop.make_trainer
+
+    def clocked(cfg, device):
+        tr = make_trainer(cfg, device=device)
+        step, val_step = tr.train_step, tr.val_step
+
+        def train_step(*a, **kw):
+            if not clock["starts"]:
+                clock["before"] = {k: v.clone()
+                                   for k, v in tr.nets.state_dict().items()}
+            if len(clock["starts"]) == 1:
+                torch.cuda.synchronize()
+                clock["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA])
+                clock["prof"].__enter__()
+            clock["starts"].append(time.perf_counter())
+            return step(*a, **kw)
+
+        def first_val_step(*a, **kw):
+            if clock["end"] is None:
+                torch.cuda.synchronize()
+                clock["end"] = time.perf_counter()
+                clock["prof"].__exit__(None, None, None)
+            return val_step(*a, **kw)
+        tr.train_step, tr.val_step = train_step, first_val_step
+        return tr
+
+    loop.make_trainer = clocked
+    try:
+        t0 = time.perf_counter()
+        (tr, history), launches = counted_run(
+            kernels, lambda: loop.train(cfg, synthetic=False, log=False,
+                                        device=dev), [], "training")
+        epoch_s = time.perf_counter() - t0
+    finally:
+        loop.make_trainer = make_trainer
+    starts = clock["starts"]
+    check(tr.step == len(starts) == STORE_TRAIN // cfg.batch_size,
+          f"store training: {tr.step} steps, {len(starts)} clocked")
+    check(not any(launches.values()),
+          f"store training launched a TPU-kernel port: {launches}")
+    check(len(history) == 1 and all(
+        np.isfinite(v) for part in ("train", "val")
+        for v in history[0][part].values()),
+        f"store training: history {history}")
+    moved = groups_moved(clock["before"], tr.nets.state_dict())
+    check(all(moved.values()), f"store training: moved {moved}")
+    wall = clock["end"] - starts[1]
+    by_kind, busy, n_kernels = device_summary(
+        clock["prof"], "steps 2-4 of spade_256 bf16 from the store")
+    (weights,) = glob.glob(os.path.join(cfg.output_path, "models", "*",
+                                        "epoch_0.pt"))
+    del tr, clock
+    torch.cuda.empty_cache()
+    return weights, dict(
+        store_train_ms_per_step=wall / (len(starts) - 1) * 1e3,
+        store_train_first_step_s=starts[1] - starts[0],
+        store_train_epoch_s=epoch_s,
+        store_train_device_idle_share=max(0.0, 1 - busy / 1e3 / wall),
+        store_train_device_ms_by_kind=by_kind,
+        store_train_device_kernels=n_kernels,
+        store_train_losses=history[0]["train"],
+        store_val_losses=history[0]["val"], store_train_launches=launches)
+
+
+def serve_trained(dev, seed, kernels, weights, td):
+    """7d: the epoch's ``epoch_0.pt`` served at image 256 (stride 32, tile
+    1024, batch 16, bf16): by ``load_model_fn`` and ``DEMSuperResolution``
+    over a synthetic raster of 2 tiles, and by the map CLI over phase 5's
+    synthetic map; each with the launch counters set to 0 just before and
+    the patch kernel required; maps finite where covered and no_value
+    elsewhere.  Returns the CLI map's directory and the stats."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.cli import process_full_tiles as cli
+    from moonsuperresolution_tpu_torch.config import DSRConfig
+    from moonsuperresolution_tpu_torch.infer.engine import (
+        DEMSuperResolution,
+        load_model_fn,
+    )
+
+    geom = SERVE_GEOM
+    model = load_model_fn(weights, "gaugan", geom["image_size"], device=dev)
+    eng = DEMSuperResolution(DSRConfig(seed=seed, no_value=NO_VALUE,
+                                       compute_dtype="bfloat16", **geom),
+                             model=model, device=dev)
+    img, dem = synthetic_raster(geom["tile_size"], 2 * geom["tile_size"],
+                                seed + 2)
+    t0 = time.perf_counter()
+    (tiles, (mean, std, good)), engine_launches = counted_run(
+        kernels, lambda: run_map(eng, img, dem), [PATCHES],
+        "the trained model's tile loop")
+    torch.cuda.synchronize()
+    tiles_s = time.perf_counter() - t0
+    cover = check_tile_maps(mean, std, good, dem, "trained model, engine")
+    check(len(tiles) == 2 and cover.mean() > 0.3,
+          f"trained model: {len(tiles)} tiles, coverage {cover.mean():.3f}")
+    del eng, model
+
+    stays, filled = synthetic_map(td, seed + 1)
+    out = os.path.join(td, "served")
+    argv = ["--source_folder_path", td, "--map_name", "map", "--save_path",
+            out, "--model_path", weights]
+    for k, v in geom.items():
+        argv += [f"--{k}", str(v)]
+    res, cli_launches = run_cli(kernels, cli, argv, "trained model")
+    m = read_triple(out, "map")
+    check_map(m, res, stays, filled, "trained model map")
+    torch.cuda.empty_cache()
+    return out, dict(serve_tiles_s=tiles_s, serve_coverage=float(cover.mean()),
+                     serve_launches=engine_launches,
+                     serve_map={k: v for k, v in res.items()},
+                     serve_map_launches=cli_launches)
+
+
+def compare_served(out):
+    """7e: ``compare_maps.run`` of the served mean map against itself and
+    against a copy 1 m higher where covered."""
+    from moonsuperresolution_tpu_torch.cli import compare_maps
+    from moonsuperresolution_tpu_torch.geo.tiff import (
+        read_geotiff,
+        write_geotiff,
+    )
+
+    mean = os.path.join(out, "map_mean.tiff")
+    same = compare_maps.run(["--a", mean, "--b", mean])
+    check(same["rmse"] == 0 and same["coverage"] > 0,
+          f"compare_maps, map against itself: {same}")
+    m = read_geotiff(mean).data.squeeze()
+    higher = np.where(m > NO_VALUE, m + np.float32(1), m)
+    shifted = os.path.join(out, "map_mean_plus_1m.tiff")
+    write_geotiff(shifted, higher, MAP_GT, MAP_PROJ, NO_VALUE)
+    diff = compare_maps.run(["--a", mean, "--b", shifted])
+    check(abs(diff["bias"] + 1) <= 1e-6 and diff["coverage"] == same[
+        "coverage"], f"compare_maps, map against map + 1 m: {diff}")
+    return dict(compare_self=same, compare_plus_1m=diff)
+
+
+def real_data_path(dev, seed, kernels):
+    """Phase 7: store -> sampler -> training -> serving -> comparison."""
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as td:
+        store, st = build_stores(td, seed)
+        stats.update(st)
+        stats.update(sampler_rate(store, seed))
+        weights, st = train_from_store(dev, seed, kernels, store, td)
+        stats.update(st)
+        out, st = serve_trained(dev, seed, kernels, weights, td)
+        stats.update(st)
+        stats.update(compare_served(out))
+    bad = sorted(m for m in ("h5py", "cv2") if m in sys.modules)
+    check(not bad, f"the real-data path imported {bad}")
+    return stats
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1427,6 +1750,40 @@ def main(argv=None):
               f"{stats['train_card_vs_cpu_params_checked']} beyond 1e-5 "
               f"(Adam sign flips), every update Adam's step of a gradient "
               f"near the CPU's")
+
+        phase = "7 real-data path"
+        stats.update(real_data_path(dev, args.seed, kernels))
+        print(f"[store] build_h5_dataset: 8 tiles in "
+              f"{stats['store_build_h5_dataset_s']:.2f} s; tile_pair: "
+              f"{stats['store_tiles']} tiles, "
+              f"{stats['store_bytes'] / 2**20:.1f} MiB in "
+              f"{stats['store_write_s']:.2f} s; both read back equal")
+        print(f"[sampler] TileSampler at hw 256: "
+              f"{stats['sampler_samples_per_s']:.1f} samples/s on one "
+              f"thread, {stats['sampler_prefetched_samples_per_s']:.1f} "
+              f"through BatchPrefetcher ({stats['sampler_torch_threads']} "
+              f"torch threads)")
+        synth = stats["train_spade_256_bfloat16"]["ms_per_step"]
+        print(f"[store train] spade_256 full width, bf16, batch 16, from "
+              f"the store: {stats['store_train_ms_per_step']:.1f} ms/step "
+              f"(steps 2-4; synthetic batches on the card, phase 6a: "
+              f"{synth:.1f} ms), card idle "
+              f"{100 * stats['store_train_device_idle_share']:.1f} %, "
+              f"first step {stats['store_train_first_step_s']:.2f} s, epoch "
+              f"with validation and checkpoints "
+              f"{stats['store_train_epoch_s']:.1f} s; losses "
+              + " ".join(f"{k}={v:.4f}"
+                         for k, v in stats["store_train_losses"].items()))
+        print(f"[serve] epoch_0.pt at image 256: 2 tiles in "
+              f"{stats['serve_tiles_s']:.3f} s; the map CLI "
+              f"{stats['serve_map']['tiles']} tiles, tiles_s "
+              f"{stats['serve_map']['tiles_s']:.3f}; patch kernel launches "
+              f"{stats['serve_launches'][PATCHES]} + "
+              f"{stats['serve_map_launches'][PATCHES]}")
+        print(f"[compare] map against itself: rmse "
+              f"{stats['compare_self']['rmse']}, coverage "
+              f"{stats['compare_self']['coverage']:.3f}; against + 1 m: bias "
+              f"{stats['compare_plus_1m']['bias']}")
     except Exception as e:  # any phase failing fails the run, with its trace
         import traceback
 

@@ -18,6 +18,7 @@ on the host and needs no card, so unlike the map CLI it takes no
 from __future__ import annotations
 
 import argparse
+import sys
 
 
 def parse(argv=None):
@@ -35,7 +36,8 @@ def parse(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> dict:
+def run(argv=None) -> dict:
+    """Merges the shards; prints and returns what the merge reports."""
     import glob
     import os
     import shutil
@@ -60,5 +62,11 @@ def main(argv=None) -> dict:
     return out
 
 
+def main(argv=None) -> int:
+    """The console script: 0 once the run is done."""
+    run(argv)
+    return 0
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -9,7 +9,8 @@ moonsuperresolution_tpu/cli/process_full_tiles.py).
 Reads ``<source>/run-DRG.tif`` and ``<source>/run-DEM.tif`` and writes
 ``<save_path>/<map>_{mean,std,good}.tiff``.  ``--model_path`` is an ``.npz``
 of the JAX parameter tree (``scripts/export_params_npz.py`` makes one from
-an Orbax checkpoint); leave it unset for the identity-model pipeline check.
+an Orbax checkpoint) or an ``epoch_N.pt`` of the port's training loop;
+leave it unset for the identity-model pipeline check.
 Runs on the first CUDA card; ``--device cpu`` runs on the CPU.
 ``--quantize int8|int8_static`` runs the int8 generator, quantized from the
 same weights at load time.  ``--streaming`` bounds host memory for rasters
@@ -20,6 +21,7 @@ merged afterwards by ``moonsuperresolution_tpu_torch.cli.merge_maps``.
 from __future__ import annotations
 
 import argparse
+import sys
 
 
 def parse(argv=None):
@@ -30,8 +32,8 @@ def parse(argv=None):
     p.add_argument("--ortho_image_name", type=str, default="run-DRG.tif")
     p.add_argument("--dem_name", type=str, default="run-DEM.tif")
     p.add_argument("--model_path", type=str, default=None,
-                   help=".npz of the JAX parameter tree; omit for identity "
-                        "processing")
+                   help=".npz of the JAX parameter tree or a training run's "
+                        "epoch_N.pt; omit for identity processing")
     p.add_argument("--model_kind", type=str, default="gaugan",
                    choices=["gaugan", "cnn_spade"])
     p.add_argument("--image_size", type=int, default=256)
@@ -69,8 +71,8 @@ def parse(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> dict:
-    """Run one map (or one shard of it); prints and returns the stats."""
+def run(argv=None) -> dict:
+    """Runs one map (or one shard of it); prints and returns the stats."""
     from moonsuperresolution_tpu_torch.config import DSRConfig
     from moonsuperresolution_tpu_torch.device import resolve_device
     from moonsuperresolution_tpu_torch.infer.engine import (
@@ -105,5 +107,11 @@ def main(argv=None) -> dict:
     return stats
 
 
+def main(argv=None) -> int:
+    """The console script: 0 once the run is done."""
+    run(argv)
+    return 0
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

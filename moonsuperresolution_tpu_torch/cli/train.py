@@ -2,16 +2,21 @@
 train.py): one command for the reference's training scripts.
 
     python -m moonsuperresolution_tpu_torch.cli.train --recipe spade_256 \\
-        --synthetic --output_path exp_spade
+        --path_h5 MoonORTO2DEM.hdf5 --path_trn MoonORTO2DEM_train.pkl \\
+        --path_val MoonORTO2DEM_val.pkl --output_path exp_spade
 
-Recipes (config.py RECIPES): spade_256, spade_512, spade_no_kl_512,
-cnn_256 and cnn_512; pix2pix is a later slice of the port, and so are the
-HDF5 dataset (until then ``--synthetic`` is required) and multi-device runs
-(``--mesh``, ``--distributed``).  Runs on the first CUDA card; ``--device
-cpu`` runs on the CPU, where ``--small`` (the recipe's variant and losses at
-image 64, latent 16, channel plan 64-64-32-32-16-8, encoder and
-discriminator width 8) trains in seconds.  TensorBoard files need
-tensorboardX, and the run raises without it unless ``--no_log``.
+The store and its key pickles are the reference's (``moonsr-torch-make-h5``
+builds them); ``--synthetic`` trains on generated terrain instead.  From
+the store an epoch is the whole training set and the whole validation set;
+``--max_steps_per_epoch`` then sets only the logging interval and the epoch
+a resume starts from.  Recipes (config.py RECIPES): spade_256, spade_512,
+spade_no_kl_512, cnn_256 and cnn_512; pix2pix is a later slice of the port,
+and so are multi-device runs (``--mesh``, ``--distributed``).  Runs on the
+first CUDA card; ``--device cpu`` runs on the CPU, where ``--small`` (the
+recipe's variant and losses at image 64, latent 16, channel plan
+64-64-32-32-16-8, encoder and discriminator width 8) trains in seconds.
+TensorBoard files need tensorboardX, and the run raises without it unless
+``--no_log``.
 """
 
 from __future__ import annotations
@@ -29,6 +34,12 @@ SMALL_MODEL = dict(image_size=64, latent_dim=16,
 def parse(argv=None):
     p = argparse.ArgumentParser("moonsuperresolution_tpu_torch trainer")
     p.add_argument("--recipe", type=str, default="spade_256")
+    p.add_argument("--path_h5", type=str, default="",
+                   help="the HDF5 tile store (MoonORTO2DEM.hdf5)")
+    p.add_argument("--path_trn", type=str, default="",
+                   help="the pickled training keys")
+    p.add_argument("--path_val", type=str, default="",
+                   help="the pickled validation keys")
     p.add_argument("--output_path", type=str, default=".")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
@@ -38,7 +49,10 @@ def parse(argv=None):
                    help="train on generated terrain (no dataset needed)")
     p.add_argument("--vgg_weights", type=str, default=None,
                    help="VGG19 weights: a Keras .h5 or a converted .npz")
-    p.add_argument("--max_steps_per_epoch", type=int, default=None)
+    p.add_argument("--max_steps_per_epoch", type=int, default=None,
+                   help="steps of a synthetic epoch; from the store, an "
+                        "epoch is the whole training set and this sets only "
+                        "the logging interval and a resume's epoch")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 conv/matmul compute (params stay float32)")
     p.add_argument("--grad_accum", type=int, default=None,
@@ -67,8 +81,10 @@ def config(args):
            if getattr(args, k) is not None}
     if args.vgg_weights:
         run["vgg_weights_path"] = args.vgg_weights
+    data = dataclasses.replace(cfg.data, h5_path=args.path_h5,
+                               train_pkl=args.path_trn, val_pkl=args.path_val)
     return dataclasses.replace(
-        cfg, output_path=args.output_path, seed=args.seed,
+        cfg, output_path=args.output_path, seed=args.seed, data=data,
         model=dataclasses.replace(cfg.model, **model), **run)
 
 

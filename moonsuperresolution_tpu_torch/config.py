@@ -7,7 +7,8 @@ port always issues the SPADE gamma/beta convs as one conv);
 ``pix2pix_depth``, which waits for the pix2pix slice; ``TrainConfig``'s
 ``mesh_shape`` (multi-device runs are a later slice) and
 ``keep_checkpoints`` (read by nothing in the JAX package either); the
-``DataConfig`` fields of the HDF5 sampler's crops, which wait for its slice;
+``DataConfig`` fields of the crops, prefetch and workers, which nothing in
+the JAX package reads either (its sampler hard-codes its crops);
 and the TPU-only inference knobs ``use_pallas_patches`` (the port always
 prepares patches with its fused kernel on the card) and ``scan_unroll``
 (PyTorch runs the chunk loop eagerly).  ``pack_valid`` is always on: the

@@ -64,6 +64,7 @@ from moonsuperresolution_tpu_torch.ops.resize import (
     area_downscale4,
     resize_cubic,
 )
+from moonsuperresolution_tpu_torch.utils.checkpoint import restore_params
 from moonsuperresolution_tpu_torch.utils.convert import load_params
 
 
@@ -81,9 +82,11 @@ def load_model_fn(model_path: Optional[str], kind: str, image_size: int,
     then emits the low-res DEM channel unchanged, the reference's
     pipeline-fidelity dry run (process_full_tiles.py:139-143).  Otherwise
     ``model_path`` is an ``.npz`` of the JAX parameter tree
-    (``utils.convert.save_npz``); its ``encoder`` and ``generator`` load
-    strictly, a ``discriminator`` is left out.  ``model_kw`` sets other
-    ModelConfig fields (a smaller channel plan, say).
+    (``utils.convert.save_npz``), or the ``epoch_N.pt`` that the port's
+    training loop writes (``trainer.nets``' state dict).  Either way its
+    ``encoder`` and ``generator`` load strictly and a ``discriminator`` is
+    left out.  ``model_kw`` sets other ModelConfig fields (a smaller
+    channel plan, say).
 
     ``quantize``: "none", or the int8 generator (``quantize_model``):
     "int8" with dynamic activation scales, "int8_static" with calibrated
@@ -99,13 +102,25 @@ def load_model_fn(model_path: Optional[str], kind: str, image_size: int,
     cfg = ModelConfig(variant=kind, image_size=image_size,
                       latent_dim=latent_dim, compute_dtype=compute_dtype,
                       **model_kw)
-    # A training run's tree holds the discriminator too, which inference
-    # leaves out.
-    model = load_params(GauGAN(cfg), model_path,
-                        subtrees=("encoder", "generator"))
+    model = load_weights(GauGAN(cfg), model_path)
     if quantize != "none":
         return quantize_model(model, quantize, compute_dtype, int8_acc, dev)
     return model.to(device=dev, dtype=DTYPES[compute_dtype]).eval()
+
+
+_SERVED = ("encoder", "generator")
+
+
+def load_weights(model: GauGAN, path: str) -> GauGAN:
+    """``model``'s weights from a JAX-tree ``.npz`` or a port ``.pt`` state
+    dict: the encoder and generator strictly, the rest of a training run's
+    weights (its discriminator) left out."""
+    if path.endswith(".pt"):
+        state = {k: v for k, v in restore_params(path).items()
+                 if k.split(".")[0] in _SERVED}
+        model.load_state_dict(state, strict=True)
+        return model
+    return load_params(model, path, subtrees=_SERVED)
 
 
 def quantize_model(model: GauGAN, quantize: str,

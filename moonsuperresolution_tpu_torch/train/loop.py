@@ -2,12 +2,22 @@
 (counterpart of moonsuperresolution_tpu/train/loop.py; reference:
 train_spade_256.py:70-114 and its five siblings).
 
-The cadence is the JAX loop's: per epoch ``steps`` augmented training
-batches, then a validation pass of ``steps // 10`` batches (at least one)
-with a fixed per-epoch latent draw, then every ``checkpoint_every_epochs``
-the whole state (``checkpoints/latest.pt``, for resume) and the weights
-(``models/<run>/epoch_<e>.pt``).  Batches are made as NHWC numpy on the
-host by a prefetch thread and go to the card as pinned NCHW tensors.
+The cadence is the JAX loop's.  From the HDF5 tile store (``cfg.data``):
+per epoch the whole shuffled training set in augmented batches, then the
+whole validation set, whatever ``max_steps_per_epoch`` says (it sets only
+the logging interval and the epoch a resume starts from; by default it is
+the number of whole global batches in the training set).  On synthetic
+terrain: ``steps`` training batches and ``steps // 10`` (at least one)
+validation batches.  Validation uses a fixed per-epoch latent draw; every
+``checkpoint_every_epochs`` the loop writes the whole state
+(``checkpoints/latest.pt``, for resume) and the weights
+(``models/<run>/epoch_<e>.pt``, which ``infer.engine.load_model_fn``
+serves).  Batches are made as NHWC numpy on the host by a prefetch thread
+and go to the card as pinned NCHW tensors.
+
+One difference from the JAX loop: a training set with fewer samples than
+one batch raises a ValueError before training starts (the JAX loop fails
+with an IndexError after its empty epoch).
 
 TensorBoard tags follow the reference (train/ and test/ writers, a scalar
 per loss, GT / pred / input_hmap / input_image panels in ``jet``).  As in
@@ -29,6 +39,7 @@ from moonsuperresolution_tpu_torch.config import TrainConfig
 from moonsuperresolution_tpu_torch.data.sampler import (
     BatchPrefetcher,
     SyntheticSampler,
+    TileSampler,
     augment_batch,
 )
 from moonsuperresolution_tpu_torch.device import resolve_device
@@ -108,11 +119,7 @@ def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
     """Runs the recipe; returns (trainer, history), one history entry (mean
     train and validation metrics, seconds) per epoch."""
     dev = resolve_device(device)
-    if not synthetic:
-        raise NotImplementedError(
-            "training from the HDF5 tile store needs the TileSampler, a "
-            "later slice of the port; train with synthetic=True "
-            "(--synthetic)")
+    trn, val = _samplers(cfg, synthetic)
     run_name = time.strftime("%Y%m%d-%H%M%S")
     out = cfg.output_path
     model_dir = os.path.join(out, "models", run_name)
@@ -130,10 +137,8 @@ def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
     if resumed:
         restore_checkpoint(latest, trainer, gen)
 
-    size, bs = cfg.model.image_size, cfg.batch_size
-    trn = SyntheticSampler(hw=size, seed=cfg.seed)
-    val = SyntheticSampler(hw=size, seed=cfg.seed + 1)
-    steps = max_steps_per_epoch or SYNTHETIC_STEPS
+    bs = cfg.batch_size
+    steps = max_steps_per_epoch or _steps_per_epoch(cfg, synthetic, trn)
     start_epoch = trainer.step // steps if resumed else 0
     if resumed:
         print(f"resumed from step {trainer.step} (epoch {start_epoch})")
@@ -145,7 +150,8 @@ def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
         t0 = time.time()
         train_acc = []
         for step, (x, y) in enumerate(
-                BatchPrefetcher(trn.batches(bs, steps), depth=4)):
+                BatchPrefetcher(_epoch_batches(trn, bs, steps, synthetic),
+                                depth=4)):
             x, y = augment_batch(x, y, aug_rng)
             metrics, fake = trainer.train_step(
                 to_device(x, dev), to_device(y, dev), generator=gen)
@@ -163,19 +169,21 @@ def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
         val_gen = torch.Generator(dev).manual_seed(
             cfg.seed * 2**32 + 2**31 + epoch)
         val_acc = []
-        for vx, vy in BatchPrefetcher(val.batches(bs, max(1, steps // 10)),
-                                      depth=2):
+        val_it = _epoch_batches(val, bs, max(1, steps // 10), synthetic)
+        for vx, vy in BatchPrefetcher(val_it, depth=2):
             vm, vf = trainer.val_step(to_device(vx, dev), to_device(vy, dev),
                                       generator=val_gen)
             val_acc.append(vm)
-        vmean = _mean_metrics(val_acc)
-        print(f"epoch {epoch + 1} VAL "
-              + " ".join(f"{k}={v:.4f}" for k, v in vmean.items()), flush=True)
-        tb_val.scalars(vmean, trainer.step)
-        tb_val.images(vx, vy, nhwc(vf), trainer.step, max_outputs=9)
-        tb_val.flush()
-        history.append({"epoch": epoch, "train": _mean_metrics(train_acc),
-                        "val": vmean, "seconds": time.time() - t0})
+        if val_acc:     # a validation set smaller than a batch has none
+            vmean = _mean_metrics(val_acc)
+            print(f"epoch {epoch + 1} VAL "
+                  + " ".join(f"{k}={v:.4f}" for k, v in vmean.items()),
+                  flush=True)
+            tb_val.scalars(vmean, trainer.step)
+            tb_val.images(vx, vy, nhwc(vf), trainer.step, max_outputs=9)
+            tb_val.flush()
+            history.append({"epoch": epoch, "train": _mean_metrics(train_acc),
+                            "val": vmean, "seconds": time.time() - t0})
 
         if (epoch + 1) % cfg.checkpoint_every_epochs == 0:
             save_checkpoint(latest, trainer, gen)
@@ -183,4 +191,48 @@ def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
                         trainer.nets)
     tb_train.close()
     tb_val.close()
+    if not synthetic:
+        trn.close()
+        val.close()
     return trainer, history
+
+
+def _samplers(cfg: TrainConfig, synthetic: bool):
+    """The training and validation samplers, seeded ``cfg.seed`` and
+    ``cfg.seed + 1``."""
+    size = cfg.model.image_size
+    if synthetic:
+        return (SyntheticSampler(hw=size, seed=cfg.seed),
+                SyntheticSampler(hw=size, seed=cfg.seed + 1))
+    d = cfg.data
+    if not (d.h5_path and d.train_pkl and d.val_pkl):
+        raise ValueError("training from the HDF5 tile store needs "
+                         "cfg.data's h5_path, train_pkl and val_pkl "
+                         "(--path_h5, --path_trn, --path_val), or "
+                         "synthetic=True (--synthetic)")
+    kw = dict(hw=size, upscaling=cfg.model.upscaling_factor)
+    trn = TileSampler(d.h5_path, d.train_pkl, seed=cfg.seed, **kw)
+    if trn.num_samples < cfg.batch_size:
+        trn.close()
+        raise ValueError(f"{d.train_pkl} holds {trn.num_samples} training "
+                         f"samples, fewer than one batch of "
+                         f"{cfg.batch_size}")
+    return trn, TileSampler(d.h5_path, d.val_pkl, seed=cfg.seed + 1, **kw)
+
+
+def _steps_per_epoch(cfg: TrainConfig, synthetic: bool, sampler) -> int:
+    """Synthetic: ``SYNTHETIC_STEPS``.  From the store: the whole global
+    batches in the global sample count, floored to the shortest process's
+    share (JAX loop.py:257-267)."""
+    if synthetic:
+        return SYNTHETIC_STEPS
+    pc = sampler.process_count
+    return max(1, sampler.global_num_samples // pc // (cfg.batch_size // pc))
+
+
+def _epoch_batches(sampler, bs: int, steps: int, synthetic: bool):
+    """One epoch's batches: ``steps`` of synthetic terrain, or the whole
+    shuffled set from the store (``steps`` does not bound it)."""
+    if synthetic:
+        return sampler.batches(bs, steps)
+    return sampler.batches(bs, shuffle=True)

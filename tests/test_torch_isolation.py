@@ -11,8 +11,11 @@ import pytest
 import torch
 
 from moonsuperresolution_tpu_torch.cli import (
+    compare_maps,
+    make_h5,
     merge_maps,
     process_full_tiles,
+    tile_wac,
 )
 from moonsuperresolution_tpu_torch.cli import train as cli_train
 from moonsuperresolution_tpu_torch.config import (
@@ -46,9 +49,10 @@ print(json.dumps({"modules": names, "bad": bad}))
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """Nor cv2: the machine with the card has no OpenCV; nor matplotlib,
-    h5py or tensorboardX at import (the first two are absent there too;
-    the logger imports tensorboardX when asked to log)."""
+    """Nor cv2 nor h5py: the machine with the card has neither (the port
+    reads and writes the tile store with its own data/hdf5.py); nor
+    matplotlib, absent there too, or tensorboardX at import (the logger
+    imports it when asked to log)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                           text=True, timeout=120, cwd=root)
@@ -60,7 +64,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "infer.streaming", "cli.process_full_tiles",
                  "cli.merge_maps", "train.trainers", "train.loop", "losses",
                  "models.vgg", "data.sampler", "utils.checkpoint",
-                 "utils.colorize", "ops.gradients", "cli.train"):
+                 "utils.colorize", "ops.gradients", "cli.train",
+                 "data.hdf5", "data.h5_builder", "data.wac_tiler",
+                 "cli.make_h5", "cli.tile_wac", "cli.compare_maps"):
         assert f"moonsuperresolution_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -92,7 +98,7 @@ def _enter(entry, tmp_path, cpu):
             **CFG, source_folder_path=str(tmp_path)), **dev).process_map()
     if entry == "load_model_fn":
         return load_model_fn("", "gaugan", 64, **dev)
-    return process_full_tiles.main([
+    return process_full_tiles.run([
         "--source_folder_path", str(tmp_path), "--map_name", "m",
         "--save_path", str(tmp_path), "--image_size", "64", "--stride", "16",
         "--tile_size", "128", *flag])
@@ -112,15 +118,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
 def test_cpu_only_when_asked(no_card, tmp_path):
     """With the CPU asked for, each entry point gets past the device; the
     map entry points then fail only on what this empty directory lacks,
-    and the training ones on the HDF5 dataset, a later slice (a synthetic
-    run on the CPU: tests/test_torch_train_loop.py)."""
+    and the training ones on the tile store's paths, which they were not
+    given (runs on the CPU: tests/test_torch_train_loop.py)."""
     assert _enter("engine", tmp_path, cpu=True).device.type == "cpu"
     assert _enter("load_model_fn", tmp_path, cpu=True) is None
     for entry in ("process_map", "process_full_tiles"):
         with pytest.raises(ValueError, match="not found"):
             _enter(entry, tmp_path, cpu=True)
     for entry in ("train", "cli.train"):
-        with pytest.raises(NotImplementedError, match="TileSampler"):
+        with pytest.raises(ValueError, match="h5_path, train_pkl and val_pkl"):
             _enter(entry, tmp_path, cpu=True)
 
 
@@ -130,6 +136,24 @@ def test_merge_maps_needs_no_card(no_card, tmp_path, flags):
     missing manifests, and it has no --device to ask for one."""
     args = ["--save_path", str(tmp_path), "--map_name", "m", *flags]
     with pytest.raises(ValueError, match="no (streaming )?shard manifests"):
-        merge_maps.main(args)
+        merge_maps.run(args)
     with pytest.raises(SystemExit):
         merge_maps.parse(args + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("cli,argv,error", [
+    (make_h5, ["--data_path", "{d}"], FileNotFoundError),
+    (tile_wac, ["--mosaic", "{d}/wac.tif", "--output_path", "{d}"],
+     FileNotFoundError),
+    (compare_maps, ["--a", "{d}/a.tif", "--b", "{d}/b.tif"],
+     FileNotFoundError),
+])
+def test_data_clis_need_no_card(no_card, tmp_path, cli, argv, error):
+    """The dataset tools and the map comparison are host numpy: without a
+    card they get as far as the missing inputs, and they have no --device
+    to ask for one."""
+    argv = [a.format(d=tmp_path) for a in argv]
+    with pytest.raises(error):
+        cli.run(argv)
+    with pytest.raises(SystemExit):
+        cli.parse(argv + ["--device", "cpu"])

@@ -221,7 +221,7 @@ def test_cnn_spade_map_matches_jax(tmp_path, rng):
 
 
 def _cli(td, save, *extra):
-    return process_full_tiles.main([
+    return process_full_tiles.run([
         "--source_folder_path", td, "--map_name", "toy",
         "--save_path", os.path.join(td, save), "--image_size", "64",
         "--stride", "8", "--tile_size", "128", "--batch_size", "32",
@@ -308,9 +308,9 @@ def test_sharded_map_merges_bit_exact(tmp_path, rng, mode):
         sh, f"toy_{'s' if mode == 'streaming' else ''}shard1of{n}.json")
     os.rename(manifest, manifest + ".bak")
     with pytest.raises(ValueError, match="missing shards"):
-        merge_maps.main(["--save_path", sh, "--map_name", "toy", *flags])
+        merge_maps.run(["--save_path", sh, "--map_name", "toy", *flags])
     os.rename(manifest + ".bak", manifest)
-    merge_maps.main(["--save_path", sh, "--map_name", "toy", "--num_shards",
+    merge_maps.run(["--save_path", sh, "--map_name", "toy", "--num_shards",
                      str(n), *flags])
     _assert_same_files(os.path.join(td, "whole"), sh)
 
@@ -360,3 +360,22 @@ def test_lr_synth_producer_error_propagates():
         synth.wait_rows(1)
     with pytest.raises(RuntimeError, match="disk on fire"):
         synth.join()
+
+
+def test_console_scripts_return_0(tmp_path, rng):
+    """``main`` of the map CLI and of the merge CLI return 0 for their
+    console scripts (``run`` returns the stats), here over two shards of
+    an identity map merged."""
+    td = str(tmp_path)
+    _synthetic_pair(td, rng, h=200, w=260)
+    sh = os.path.join(td, "shards")
+    for i in range(2):
+        assert process_full_tiles.main([
+            "--source_folder_path", td, "--map_name", "toy", "--save_path",
+            sh, "--image_size", "64", "--stride", "32", "--tile_size", "128",
+            "--fill_workers", "1", "--device", "cpu", "--shard_index",
+            str(i), "--num_shards", "2"]) == 0
+    assert merge_maps.main(["--save_path", sh, "--map_name", "toy",
+                            "--num_shards", "2"]) == 0
+    good = _maps(sh)["good"].data.squeeze()
+    assert good.shape == (200, 260) and (good > 0).mean() > 0.5

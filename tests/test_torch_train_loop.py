@@ -1,9 +1,13 @@
 """The port's trainer beyond one step against JAX: mixed precision, the
 parameter tree, gradient accumulation, checkpoints, the loop with resume,
-and the CLI, on the CPU at a small size."""
+and the CLI, on the CPU at a small size; the loop from an HDF5 tile store
+(the JAX loop's whole-epoch cadence and step count), and the epoch's
+weights served by the map engine as the same weights' ``.npz`` are."""
 
+import dataclasses
 import glob
 import os
+import pickle
 import sys
 import warnings
 
@@ -11,17 +15,28 @@ import numpy as np
 import pytest
 import torch
 
+from moonsuperresolution_tpu.data.h5_builder import tile_pair
+from moonsuperresolution_tpu.data.sampler import TileSampler as JTileSampler
+from moonsuperresolution_tpu.train.loop import (
+    _steps_per_epoch as jax_steps_per_epoch,
+)
 from moonsuperresolution_tpu_torch.cli import train as cli_train
 from moonsuperresolution_tpu_torch.config import (
     RECIPES,
+    DataConfig,
+    DSRConfig,
     ModelConfig,
     TrainConfig,
 )
+from moonsuperresolution_tpu_torch.data.hdf5 import H5Writer
 from moonsuperresolution_tpu_torch.models.gaugan import GauGAN
 from moonsuperresolution_tpu_torch.models.layers import init_params
 from moonsuperresolution_tpu_torch.models.networks import SpadeDiscriminator
 from moonsuperresolution_tpu_torch.models.vgg import init_vgg
-from moonsuperresolution_tpu_torch.infer.engine import load_model_fn
+from moonsuperresolution_tpu_torch.infer.engine import (
+    DEMSuperResolution,
+    load_model_fn,
+)
 from moonsuperresolution_tpu_torch.train.loop import TBLogger, train
 from moonsuperresolution_tpu_torch.train.trainers import make_trainer
 from moonsuperresolution_tpu_torch.utils.checkpoint import (
@@ -327,7 +342,118 @@ def test_cli_refuses_multi_device_flags(argv):
 
 
 def test_pix2pix_and_datasets_wait_for_later_slices(tmp_path):
+    """pix2pix is a later slice; a run from the store without its paths
+    says which it needs."""
     with pytest.raises(NotImplementedError, match="pix2pix"):
         make_trainer(RECIPES["pix2pix"], device="cpu")
-    with pytest.raises(NotImplementedError, match="TileSampler"):
+    with pytest.raises(ValueError, match="h5_path, train_pkl and val_pkl"):
         train(cfg(output_path=str(tmp_path)), synthetic=False, device="cpu")
+
+
+# ------------------------------------------- training from the tile store
+
+
+@pytest.fixture(scope="module")
+def store(tmp_path_factory):
+    """A store written by the port (``tile_pair`` into ``H5Writer``): a
+    1500 x 3000 pair, 2 x 5 tiles of 1000 px; 7 training keys, 3 for
+    validation."""
+    rng = np.random.default_rng(0)
+    td = tmp_path_factory.mktemp("store")
+    ort = (rng.random((1500, 3000)) * 255).astype(np.float32)
+    dem = (rng.random((1500, 3000)) * 4000 - 2000).astype(np.float32)
+    dct = {}
+    with H5Writer(str(td / "tiles.hdf5")) as h5:
+        tile_pair(ort, dem, "R", h5, dct)
+    keys = list(dct)
+    for name, part in (("train", keys[:7]), ("val", keys[7:])):
+        with open(td / f"{name}.pkl", "wb") as f:
+            pickle.dump({k: dct[k] for k in part}, f)
+    return DataConfig(h5_path=str(td / "tiles.hdf5"),
+                      train_pkl=str(td / "train.pkl"),
+                      val_pkl=str(td / "val.pkl"))
+
+
+@pytest.fixture(scope="module")
+def trained(store, tmp_path_factory):
+    """One epoch of a small gaugan from the store on the CPU, with
+    ``max_steps_per_epoch=1``: (config, trainer, history, epoch_0.pt)."""
+    out = tmp_path_factory.mktemp("run")
+    c = dataclasses.replace(cfg(epochs=1, output_path=str(out), seed=0),
+                            data=store)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # the random-VGG warning
+        tr, history = train(c, synthetic=False, max_steps_per_epoch=1,
+                            log=False, device="cpu")
+    (weights,) = glob.glob(str(out / "models" / "*" / "epoch_0.pt"))
+    return c, tr, history, weights
+
+
+def test_train_from_the_store_runs_whole_epochs(trained):
+    """JAX's cadence on real data: the whole shuffled training set (7
+    samples, 3 batches of 2, JAX's ``_steps_per_epoch``) and the whole
+    validation set (one batch of 2), whatever ``max_steps_per_epoch`` (1
+    here) says."""
+    c, tr, history, weights = trained
+    jax_sampler = JTileSampler(c.data.h5_path, c.data.train_pkl, hw=64)
+    assert jax_steps_per_epoch(c, False, jax_sampler) == 3
+    assert tr.step == 3 and len(history) == 1
+    assert all(np.isfinite(v) for part in ("train", "val")
+               for v in history[0][part].values())
+    state_equal(tr.nets.state_dict(), restore_params(weights))
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8", "int8_static"])
+def test_trained_epoch_serves_like_its_npz(trained, tmp_path, rng,
+                                           quantize):
+    """The loop's ``epoch_0.pt`` through ``load_model_fn`` and
+    ``process_tile`` gives the tile that the same weights give through
+    ``export_params`` and the ``.npz`` (the discriminator left out by
+    both), in every quantize mode."""
+    c, tr, _, weights = trained
+    npz = str(tmp_path / "trained.npz")
+    save_npz(npz, export_params(tr.nets))
+    kw = dict(latent_dim=16, compute_dtype="float32", quantize=quantize,
+              device="cpu", channel_plan=SMALL["channel_plan"],
+              encoder_filters=SMALL["encoder_filters"])
+    img = (rng.standard_normal((160, 160)) * 30 + 128).astype(np.float32)
+    dem = (rng.standard_normal((160, 160)) * 40).astype(np.float32)
+    tiles = []
+    for path in (weights, npz):
+        model = load_model_fn(path, "gaugan", 64, **kw)
+        eng = DEMSuperResolution(
+            DSRConfig(image_size=64, stride=32, tile_size=128, batch_size=8,
+                      compute_dtype="float32"), model=model, device="cpu")
+        eng.img, eng.dem, eng.dem_shape = img, dem, dem.shape
+        eng.pad_inputs()
+        tiles.append([t.numpy() for t in eng.process_tile(0, 0)])
+    (mean, std, good), want = tiles
+    cover = good > 0            # the tile's corner lies in the padding
+    assert cover.mean() > 0.3 and np.isfinite(mean[cover]).all()
+    for g, w in zip((mean, std, good), want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_train_from_the_store_refuses_an_epoch_without_a_batch(store,
+                                                               tmp_path):
+    """7 training samples cannot make a batch of 8: a ValueError naming
+    both (the JAX loop fails with an IndexError after its empty epoch)."""
+    c = dataclasses.replace(cfg(batch=8, output_path=str(tmp_path)),
+                            data=store)
+    with pytest.raises(ValueError, match="holds 7 training samples, fewer "
+                                         "than one batch of 8"):
+        train(c, synthetic=False, log=False, device="cpu")
+
+
+def test_cli_trains_from_the_store(store, tmp_path):
+    """``--path_h5/--path_trn/--path_val``, no ``--synthetic``: the console
+    script returns 0, and ``run`` trains the whole epoch."""
+    argv = ["--path_h5", store.h5_path, "--path_trn", store.train_pkl,
+            "--path_val", store.val_pkl, "--small", "--device", "cpu",
+            "--no_log", "--epochs", "1", "--batch_size", "2",
+            "--output_path", str(tmp_path)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert cli_train.main(argv) == 0
+        tr, history = cli_train.run(argv + ["--max_steps_per_epoch", "2"])
+    assert tr.step == 3 and tr.cfg.data == store
