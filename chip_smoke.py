@@ -97,8 +97,25 @@ prints no result.  Phases; any failure exits non-zero:
      e. ``compare_maps`` of the served mean map against itself (rmse 0)
         and against a copy 1 m higher (bias -1 within 1e-6).
 
+  8. pix2pix and the Keras import (no kernel of csrc/ runs in 8a-8c):
+     a. the pix2pix recipe at full width (U-Net depth 8, image 256, batch
+        64, Adam 2e-4 with beta1 0.5, float32, TF32 off) on the port's
+        SyntheticSampler, timed as 6a (0 launches of either kernel); the
+        output [64, 1, 256, 256] and the PatchGAN's logits [64, 1, 30, 30];
+     b. pix2pix through ``train`` at depth 6 / image 64 as 6b: restored bit
+        for bit, ``epoch_0.pt`` holding the generator and discriminator,
+        resumed from step 2 to 4;
+     c. one step of that small pix2pix, card against CPU from the same
+        weights, batch and dropout masks, held as 6c;
+     d. full-width GauGAN weights in the Keras order and naming of the
+        reference's SavedModels (from ``--seed``) through the port's
+        importer and ``save_npz``, served by the map CLI in bf16 over
+        phase 5's map with the patch kernel counted; the same tree through
+        ``load_params`` and the engine gives the same mean map bit for
+        bit; a stream with two same-shape convs swapped is refused.
+
 The line before the last is the kernels' JSON record (launches summed over
-phase 3's tile loops, every map run and phase 7d); the last line is
+phase 3's tile loops, every map run, phase 7d and phase 8d); the last line is
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes the whole
 record (every qconv shape's row) to FILE.
 """
@@ -1108,23 +1125,21 @@ def synthetic_batches(size, batch, n, seed, dev):
 
 
 def groups_moved(before, after):
-    """Which of encoder, generator, discriminator changed."""
+    """Which of the trainer's networks (encoder, generator, discriminator)
+    changed."""
+    groups = {k.split(".")[0] for k in before}
     return {g: any(not bool((after[k] == v).all())
                    for k, v in before.items() if k.startswith(g + "."))
-            for g in ("encoder", "generator", "discriminator")}
+            for g in sorted(groups)}
 
 
 def train_full_width(dev, seed, kernels, compute_dtype):
     """6a: spade_256 at full width (GauGAN, image 256, batch 16, default
-    widths, float32 parameters) in ``compute_dtype``: 2 warm-up steps, 5
-    timed steps to a host readback of their losses, model FLOPs of one step
-    (``FlopCounterMode``), one step profiled.  Fails unless every loss is
-    finite and all three groups moved; counts launches of the kernels
-    (none may launch on this path)."""
+    widths, float32 parameters) in ``compute_dtype``, timed by
+    ``timed_training``."""
     import dataclasses
 
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     from moonsuperresolution_tpu_torch.config import RECIPES
     from moonsuperresolution_tpu_torch.train.trainers import make_trainer
@@ -1132,11 +1147,26 @@ def train_full_width(dev, seed, kernels, compute_dtype):
     cfg = RECIPES["spade_256"]
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, compute_dtype=compute_dtype))
-    m = cfg.model
     tr = make_trainer(cfg, device=dev).init(
         torch.Generator(dev).manual_seed(seed))
+    batches = synthetic_batches(cfg.model.image_size, cfg.batch_size, 2,
+                                seed, dev)
+    out = timed_training(dev, seed, kernels, tr, batches, compute_dtype)
+    del tr, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_training(dev, seed, kernels, tr, batches, what):
+    """A trainer's steps on two batches already on the card: 2 warm-up
+    steps, 5 timed steps to a host readback of their losses, model FLOPs of
+    one step (``FlopCounterMode``), one step profiled.  Fails unless every
+    loss is finite and every network moved; counts launches of the kernels
+    (none may launch on the training paths)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
     gen = torch.Generator(dev).manual_seed(seed)
-    batches = synthetic_batches(m.image_size, cfg.batch_size, 2, seed, dev)
     before = {k: v.clone() for k, v in tr.nets.state_dict().items()}
 
     def step(i):
@@ -1158,35 +1188,35 @@ def train_full_width(dev, seed, kernels, compute_dtype):
           f"training launched a TPU-kernel port: {launches}")
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(np.isfinite(v) for o in losses for v in o.values()),
-          f"{compute_dtype} training: a loss is not finite: {losses[-1]}")
+          f"{what} training: a loss is not finite: {losses[-1]}")
     moved = groups_moved(before, tr.nets.state_dict())
-    check(all(moved.values()), f"{compute_dtype} training: moved {moved}")
+    check(all(moved.values()), f"{what} training: moved {moved}")
     del before
     with FlopCounterMode(display=False) as fc:
         step(0)
     flops = fc.get_total_flops()
     by_kind, wall, busy, n_kernels = profile_device(
-        lambda: step(1), f"one full-width {compute_dtype} training step")
+        lambda: step(1), f"one full-width {what} training step")
     params = sum(p.numel() for p in tr.nets.parameters())
-    out = dict(ms_per_step=dt * 1e3, samples_per_s=cfg.batch_size / dt,
-               peak_mem_gib=peak / 2 ** 30, params=params,
-               tflop_per_step=flops / 1e12,
-               model_tflop_per_s=flops / dt / 1e12,
-               profiled_step_s=wall, device_busy_ms=busy,
-               device_idle_share=max(0.0, 1 - busy / 1e3 / wall),
-               device_kernels_per_step=n_kernels,
-               device_ms_by_kind=by_kind, last_losses=losses[-1],
-               launches=launches)
-    del tr, batches
-    torch.cuda.empty_cache()
-    return out
+    batch = batches[0][0].shape[0]
+    return dict(ms_per_step=dt * 1e3, samples_per_s=batch / dt,
+                peak_mem_gib=peak / 2 ** 30, params=params,
+                tflop_per_step=flops / 1e12,
+                model_tflop_per_s=flops / dt / 1e12,
+                profiled_step_s=wall, device_busy_ms=busy,
+                device_idle_share=max(0.0, 1 - busy / 1e3 / wall),
+                device_kernels_per_step=n_kernels,
+                device_ms_by_kind=by_kind, last_losses=losses[-1],
+                launches=launches)
 
 
-def train_loop_resume(dev, seed):
-    """6b: ``train`` on the card at a small width for one epoch of 2 steps,
-    the checkpoint restored into a fresh trainer (bit for bit), then
+def train_loop_resume(dev, seed, cfg=None):
+    """6b (and 8b with a pix2pix ``cfg``): ``train`` on the card at a small
+    width for one epoch of 2 steps, the checkpoint restored into a fresh
+    trainer (bit for bit), ``epoch_0.pt`` holding every network, then
     ``resume=True`` for a second epoch: the step goes on from 2 to 4."""
     import dataclasses
+    import glob
 
     import torch
 
@@ -1195,13 +1225,19 @@ def train_loop_resume(dev, seed):
     from moonsuperresolution_tpu_torch.train.trainers import make_trainer
     from moonsuperresolution_tpu_torch.utils.checkpoint import (
         restore_checkpoint,
+        restore_params,
     )
 
+    if cfg is None:
+        cfg = TrainConfig(model=ModelConfig(**TRAIN_SMALL), batch_size=4)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as td:
-        cfg = TrainConfig(model=ModelConfig(**TRAIN_SMALL), batch_size=4,
-                          epochs=1, output_path=td, seed=seed)
+        cfg = dataclasses.replace(cfg, epochs=1, output_path=td, seed=seed)
         tr, history = train(cfg, synthetic=True, max_steps_per_epoch=2,
                             log=False, device=dev)
+        (weights,) = glob.glob(os.path.join(td, "models", "*",
+                                            "epoch_0.pt"))
+        groups = {k.split(".")[0] for k in restore_params(weights)}
+        check(groups == set(tr.nets), f"loop: epoch_0.pt holds {groups}")
         fresh = make_trainer(cfg, device=dev)
         gen = torch.Generator(dev)
         step = restore_checkpoint(os.path.join(td, "checkpoints",
@@ -1230,7 +1266,8 @@ def train_loop_resume(dev, seed):
 
 
 def adam_first_step(g, lr, eps):
-    """Adam's first update with beta1 = 0 (Keras settings): m = g, v = g^2."""
+    """Adam's first update: m / (1 - beta1) = g and v / (1 - beta2) = g^2
+    for any beta1 (0 in the GauGAN recipes, 0.5 in pix2pix's)."""
     return -lr * g / (np.abs(g) + eps)
 
 
@@ -1303,7 +1340,20 @@ def train_card_vs_cpu(dev, seed):
           f"relative ({ {k: float(v) for k, v in got.items()} } against "
           f"{ {k: float(v) for k, v in want.items()} })")
 
-    o, noisy = cfg.optimizer, set(normalised_biases(cfg.model))
+    raw_max, over, n = updates_near_cpu(card, cpu, start, cfg.optimizer,
+                                        set(normalised_biases(cfg.model)))
+    return dict(train_card_vs_cpu_loss_max_rel_err=loss_err,
+                train_card_vs_cpu_param_max_abs_diff=raw_max,
+                train_card_vs_cpu_params_over_1e5=over,
+                train_card_vs_cpu_params_checked=n)
+
+
+def updates_near_cpu(card, cpu, start, o, noisy):
+    """6c's and 8c's bound on the card's first update: within 1e-5 of Adam's
+    step (any beta1) of some gradient within 1e-4 |g| + 1e-3 max|g| (over
+    its network) of the CPU trainer's own; the parameters named in
+    ``noisy`` move by at most lr.  Returns the largest raw difference, the
+    count beyond 1e-5 and the count checked."""
     card_params = {k: v.cpu() for k, v in card.nets.state_dict().items()}
     grads = dict(cpu.nets.named_parameters())
     gmax = {}
@@ -1330,10 +1380,7 @@ def train_card_vs_cpu(dev, seed):
         check(bool(((lo <= u) & (u <= hi)).all()),
               f"card vs CPU: {name}'s update is not Adam's step of a "
               "gradient near the CPU's")
-    return dict(train_card_vs_cpu_loss_max_rel_err=loss_err,
-                train_card_vs_cpu_param_max_abs_diff=raw_max,
-                train_card_vs_cpu_params_over_1e5=over,
-                train_card_vs_cpu_params_checked=n)
+    return raw_max, over, n
 
 
 # ----------------------------------------------------------------- phase 7
@@ -1623,6 +1670,261 @@ def real_data_path(dev, seed, kernels):
     return stats
 
 
+# ----------------------------------------------------------------- phase 8
+
+# The small pix2pix of 8b and 8c: the JAX tests' depth 6 at image 64.
+P2P_SMALL = dict(image_size=64, pix2pix_depth=6)
+P2P_LOGITS = 30         # the PatchGAN's logit map at 256 px
+
+
+def pix2pix_cfg(**model):
+    import dataclasses
+
+    from moonsuperresolution_tpu_torch.config import RECIPES
+
+    cfg = RECIPES["pix2pix"]
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              **model))
+
+
+def train_pix2pix_full_width(dev, seed, kernels):
+    """8a: the pix2pix recipe unchanged (U-Net depth 8, image 256, batch
+    64, Adam 2e-4 with beta1 0.5, float32 with TF32 off), timed by
+    ``timed_training`` on SyntheticSampler batches already on the card;
+    the generator's output and the PatchGAN's logits have their shapes."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.train.trainers import make_trainer
+
+    cfg = pix2pix_cfg()
+    m = cfg.model
+    tr = make_trainer(cfg, device=dev).init(
+        torch.Generator(dev).manual_seed(seed))
+    batches = synthetic_batches(m.image_size, cfg.batch_size, 2, seed, dev)
+    out = timed_training(dev, seed, kernels, tr, batches, "pix2pix float32")
+    with torch.no_grad():
+        fake = tr.forward(batches[0][0])
+        logits = tr.discriminator(batches[0][0], fake)
+    b, size = cfg.batch_size, m.image_size
+    check(list(fake.shape) == [b, 1, size, size]
+          and list(logits.shape) == [b, 1, P2P_LOGITS, P2P_LOGITS],
+          f"pix2pix: output {list(fake.shape)}, logits "
+          f"{list(logits.shape)}")
+    out.update(depth=m.pix2pix_depth, batch=b, image_size=size,
+               output_shape=list(fake.shape),
+               logits_shape=list(logits.shape))
+    del tr, batches, fake, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def pix2pix_card_vs_cpu(dev, seed):
+    """8c: one step of a small float32 pix2pix trainer (depth 6, image 64,
+    batch 4) on the card and on the CPU, from the same weights, batch and
+    dropout masks.  Losses to rtol 1e-4; parameters to 6c's bound on Adam's
+    first step (``updates_near_cpu``)."""
+    import dataclasses
+
+    import torch
+
+    from moonsuperresolution_tpu_torch.train.trainers import make_trainer
+
+    cfg = dataclasses.replace(pix2pix_cfg(**P2P_SMALL), batch_size=4)
+    cpu = make_trainer(cfg, device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    card = make_trainer(cfg, device=dev)
+    card.nets.load_state_dict(cpu.nets.state_dict())
+    start = {k: v.clone() for k, v in cpu.nets.state_dict().items()}
+    ((src, tgt),) = synthetic_batches(64, 4, 1, seed, "cpu")
+    masks = cpu.generator.draw_masks(src, torch.Generator().manual_seed(seed))
+    want, _ = cpu.train_step(src, tgt, masks=masks)
+    got, _ = card.train_step(src.to(dev), tgt.to(dev),
+                             masks=[m.to(dev) for m in masks])
+    loss_err = max(abs(float(got[k]) - float(v)) / abs(float(v))
+                   for k, v in want.items())
+    check(loss_err <= 1e-4, f"pix2pix card vs CPU: losses differ by "
+          f"{loss_err} relative ({ {k: float(v) for k, v in got.items()} } "
+          f"against { {k: float(v) for k, v in want.items()} })")
+    raw_max, over, n = updates_near_cpu(card, cpu, start, cfg.optimizer,
+                                        set())
+    return dict(p2p_card_vs_cpu_loss_max_rel_err=loss_err,
+                p2p_card_vs_cpu_param_max_abs_diff=raw_max,
+                p2p_card_vs_cpu_params_over_1e5=over,
+                p2p_card_vs_cpu_params_checked=n)
+
+
+def keras_streams(seed, image_size, latent=256):
+    """Full-width Keras-order weight streams of the reference's encoder and
+    SPADE generator (networks.py:8-57), as two SavedModels would hold them:
+    each tensor under Keras' auto-name (``conv2d``, ``conv2d_1``, ...,
+    ``dense``, ``instance_normalization``) in creation order.  Kernels are
+    glorot normal, biases and betas 0, gammas 1.  Returns {"encoder": (names,
+    values), "generator": (names, values)}."""
+    rng = np.random.default_rng(seed)
+
+    def stream(layers):
+        made, names, values = {}, [], []
+        for family, leaves in layers:
+            i = made.get(family, 0)
+            made[family] = i + 1
+            layer = f"{family}_{i}" if i else family
+            for leaf, value in leaves:
+                names.append(f"{layer}/{leaf}:0")
+                values.append(value)
+        return names, values
+
+    def kernel(*shape):
+        receptive = int(np.prod(shape[:-2]))
+        std = np.sqrt(2.0 / (receptive * (shape[-2] + shape[-1])))
+        return rng.standard_normal(shape, np.float32) * np.float32(std)
+
+    def conv(k, cin, cout, bias=True):
+        leaves = [("kernel", kernel(k, k, cin, cout))]
+        if bias:
+            leaves.append(("bias", np.zeros(cout, np.float32)))
+        return "conv2d", leaves
+
+    def dense(cin, cout):
+        return "dense", [("kernel", kernel(cin, cout)),
+                         ("bias", np.zeros(cout, np.float32))]
+
+    enc = []
+    for i, (cin, cout) in enumerate(((2, 64), (64, 128), (128, 256),
+                                     (256, 512), (512, 512))):
+        enc.append(conv(3, cin, cout, bias=False))
+        if i:
+            enc.append(("instance_normalization",
+                        [("gamma", np.ones(cout, np.float32)),
+                         ("beta", np.zeros(cout, np.float32))]))
+    flat = (image_size // 32) ** 2 * 512
+    enc += [dense(flat, latent), dense(flat, latent)]
+
+    def spade(f):       # the mask conv, then gamma's and beta's
+        return [conv(3, 2, SPADE_HIDDEN), conv(3, SPADE_HIDDEN, f),
+                conv(3, SPADE_HIDDEN, f)]
+
+    sw = image_size // 64
+    gen = [dense(latent, 16 * sw * sw * 64)]
+    for cin, cout in zip(FULL_PLAN[:1] + FULL_PLAN[:-1], FULL_PLAN):
+        gen += spade(cin) + spade(cout) + [conv(3, cin, cout),
+                                            conv(3, cout, cout)]
+        if cin != cout:
+            gen += spade(cin) + [conv(3, cin, cout)]
+    gen.append(conv(4, FULL_PLAN[-1], 1))
+    return {"encoder": stream(enc), "generator": stream(gen)}
+
+
+def serve_imported(dev, seed, kernels):
+    """8d: full-width reference weights, in the Keras order and naming of
+    the authors' SavedModels (made from ``seed``), through the port's
+    ``encoder_params_from_weights`` / ``generator_params_from_weights`` and
+    ``save_npz``, served by the map CLI (``--model_path`` that file, bf16)
+    over phase 5's synthetic map with the patch kernel counted (at least
+    one launch per tile); the maps checked as in phase 5; the same tree
+    loaded by ``load_params`` into a GauGAN and served by the engine gives
+    the same mean map bit for bit; the stream with resblock 0's conv_1 and
+    conv_2 (same shape) swapped is refused."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.cli import process_full_tiles as cli
+    from moonsuperresolution_tpu_torch.config import DSRConfig, ModelConfig
+    from moonsuperresolution_tpu_torch.infer.engine import DEMSuperResolution
+    from moonsuperresolution_tpu_torch.models.gaugan import GauGAN
+    from moonsuperresolution_tpu_torch.utils.checkpoint import (
+        encoder_params_from_weights,
+        generator_params_from_weights,
+    )
+    from moonsuperresolution_tpu_torch.utils.convert import (
+        flatten_tree,
+        load_params,
+        save_npz,
+    )
+
+    size = PROD["image_size"]
+    t0 = time.perf_counter()
+    streams = keras_streams(seed, size)
+    tree = {"encoder": encoder_params_from_weights(*streams["encoder"]),
+            "generator": generator_params_from_weights(
+                *streams["generator"])}
+    import_s = time.perf_counter() - t0
+    n_params = sum(v.size for v in flatten_tree(tree).values())
+    names, values = (list(x) for x in streams["generator"])
+    i, j = names.index("conv2d_6/kernel:0"), names.index("conv2d_7/kernel:0")
+    check(values[i].shape == values[j].shape == (3, 3, 1024, 1024),
+          f"stream: {values[i].shape}, {values[j].shape}")
+    for a, b in ((i, j), (i + 1, j + 1)):
+        names[a], names[b] = names[b], names[a]
+        values[a], values[b] = values[b], values[a]
+    try:
+        generator_params_from_weights(names, values)
+    except ValueError as e:
+        check("creation order" in str(e), f"swapped stream: {e}")
+    else:
+        raise PhaseError("the stream with two same-shape convs swapped "
+                         "was imported")
+    del streams, names, values
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as td:
+        stays, filled = synthetic_map(td, seed + 1)
+        npz = os.path.join(td, "imported.npz")
+        save_npz(npz, tree)
+        geom = {k: PROD[k] for k in ("image_size", "stride", "tile_size",
+                                     "batch_size")}
+        out = os.path.join(td, "imported")
+        argv = ["--source_folder_path", td, "--map_name", "map",
+                "--save_path", out, "--model_path", npz]
+        for k, v in geom.items():
+            argv += [f"--{k}", str(v)]
+        res, cli_launches = run_cli(kernels, cli, argv, "imported weights")
+        check(cli_launches[PATCHES] >= res["tiles"],
+              f"imported weights: {cli_launches[PATCHES]} patch kernel "
+              f"launches for {res['tiles']} tiles")
+        m = read_triple(out, "map")
+        cover = check_map(m, res, stays, filled, "imported weights map")
+        os.remove(npz)
+
+        cfg = ModelConfig(image_size=size, compute_dtype="bfloat16")
+        model = load_params(GauGAN(cfg), tree).to(
+            device=dev, dtype=torch.bfloat16).eval()
+        direct = os.path.join(td, "direct")
+        eng = DEMSuperResolution(DSRConfig(
+            source_folder_path=td, map_name="map", save_path=direct,
+            no_value=NO_VALUE, compute_dtype="bfloat16", **geom),
+            model=model, device=dev)
+        res_direct, direct_launches = counted_run(
+            kernels, eng.process_map, [PATCHES],
+            "the imported tree served by the engine")
+        d = read_triple(direct, "map")
+        check(np.array_equal(d["mean"], m["mean"])
+              and np.array_equal(d["good"], m["good"]),
+              "imported weights: the map CLI and load_params + the engine "
+              "give different mean maps")
+        del eng, model
+    torch.cuda.empty_cache()
+    return dict(import_params=n_params, import_stream_s=import_s,
+                import_map={k: v for k, v in res.items()},
+                import_map_coverage=float(cover.mean()),
+                import_map_launches=cli_launches,
+                import_direct_tiles_s=res_direct["tiles_s"],
+                import_direct_launches=direct_launches)
+
+
+def pix2pix_and_import(dev, seed, kernels):
+    """Phase 8: pix2pix training (8a-8c) and imported weights served
+    (8d)."""
+    import dataclasses
+
+    stats = {"train_pix2pix": train_pix2pix_full_width(dev, seed, kernels)}
+    small = dataclasses.replace(pix2pix_cfg(**P2P_SMALL), batch_size=4)
+    stats.update({f"p2p_{k}": v
+                  for k, v in train_loop_resume(dev, seed, small).items()})
+    stats.update(pix2pix_card_vs_cpu(dev, seed))
+    stats.update(serve_imported(dev, seed, kernels))
+    check("tensorflow" not in sys.modules,
+          "phase 8 imported TensorFlow (the importer reads numpy streams)")
+    return stats
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1784,6 +2086,42 @@ def main(argv=None):
               f"{stats['compare_self']['rmse']}, coverage "
               f"{stats['compare_self']['coverage']:.3f}; against + 1 m: bias "
               f"{stats['compare_plus_1m']['bias']}")
+
+        phase = "8 pix2pix and imported weights"
+        stats.update(pix2pix_and_import(dev, args.seed, kernels))
+        st = stats["train_pix2pix"]
+        print(f"[pix2pix] full width (depth {st['depth']}, image "
+              f"{st['image_size']}, {st['params']} params), batch "
+              f"{st['batch']}, float32: {st['ms_per_step']:.1f} ms/step = "
+              f"{st['samples_per_s']:.2f} samples/s, "
+              f"{st['tflop_per_step']:.2f} TFLOP/step = "
+              f"{st['model_tflop_per_s']:.1f} TFLOP/s, peak memory "
+              f"{st['peak_mem_gib']:.2f} GiB, card idle "
+              f"{100 * st['device_idle_share']:.1f} % of a step "
+              f"({st['device_kernels_per_step']} device kernels); output "
+              f"{st['output_shape']}, logits {st['logits_shape']}; losses "
+              + " ".join(f"{k}={v:.4f}" for k, v in st["last_losses"].items()))
+        print("[pix2pix] device ms by kind: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in st["device_ms_by_kind"].items()))
+        print(f"[pix2pix] loop and resume on the card: epochs of "
+              f"{', '.join(f'{t:.2f}' for t in stats['p2p_loop_seconds'])} "
+              f"s, restored state equal bit for bit, step 2 -> 4; one step "
+              f"card against CPU: losses within "
+              f"{stats['p2p_card_vs_cpu_loss_max_rel_err']:.3g} relative, "
+              f"parameters within "
+              f"{stats['p2p_card_vs_cpu_param_max_abs_diff']:.3g} "
+              f"({stats['p2p_card_vs_cpu_params_over_1e5']} of "
+              f"{stats['p2p_card_vs_cpu_params_checked']} beyond 1e-5)")
+        print(f"[import] full-width Keras-order streams "
+              f"({stats['import_params']} params) imported in "
+              f"{stats['import_stream_s']:.2f} s; the map CLI over "
+              f"{stats['import_map']['tiles']} tiles: tiles_s "
+              f"{stats['import_map']['tiles_s']:.3f}, coverage "
+              f"{stats['import_map_coverage']:.3f}, patch kernel launches "
+              f"{stats['import_map_launches'][PATCHES]}; load_params + the "
+              f"engine: the same mean map bit for bit "
+              f"({stats['import_direct_launches'][PATCHES]} launches); the "
+              f"swapped stream refused")
     except Exception as e:  # any phase failing fails the run, with its trace
         import traceback
 

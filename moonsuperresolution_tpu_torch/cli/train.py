@@ -10,12 +10,14 @@ builds them); ``--synthetic`` trains on generated terrain instead.  From
 the store an epoch is the whole training set and the whole validation set;
 ``--max_steps_per_epoch`` then sets only the logging interval and the epoch
 a resume starts from.  Recipes (config.py RECIPES): spade_256, spade_512,
-spade_no_kl_512, cnn_256 and cnn_512; pix2pix is a later slice of the port,
-and so are multi-device runs (``--mesh``, ``--distributed``).  Runs on the
+spade_no_kl_512, cnn_256, cnn_512 and pix2pix; multi-device runs
+(``--mesh``, ``--distributed``) are a later slice of the port.  Runs on the
 first CUDA card; ``--device cpu`` runs on the CPU, where ``--small`` (the
-recipe's variant and losses at image 64, latent 16, channel plan
-64-64-32-32-16-8, encoder and discriminator width 8) trains in seconds.
-TensorBoard files need tensorboardX, and the run raises without it unless
+recipe's variant and losses at image 64; GauGAN: latent 16, channel plan
+64-64-32-32-16-8, encoder and discriminator width 8; pix2pix: U-Net depth
+6) trains in seconds.  ``--bf16`` changes nothing for pix2pix, which
+trains in float32 as the JAX modules (no ``dtype``) do.  TensorBoard
+files need tensorboardX, and the run raises without it unless
 ``--no_log``.
 """
 
@@ -25,10 +27,11 @@ import argparse
 import dataclasses
 import sys
 
-# --small: the model the CPU trains in seconds.
+# --small: the model the CPU trains in seconds (pix2pix reads only the
+# image size and the depth, the GauGAN family all but the depth).
 SMALL_MODEL = dict(image_size=64, latent_dim=16,
                    channel_plan=(64, 64, 32, 32, 16, 8), encoder_filters=8,
-                   disc_filters=8)
+                   disc_filters=8, pix2pix_depth=6)
 
 
 def parse(argv=None):
@@ -54,7 +57,8 @@ def parse(argv=None):
                         "epoch is the whole training set and this sets only "
                         "the logging interval and a resume's epoch")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 conv/matmul compute (params stay float32)")
+                   help="bfloat16 conv/matmul compute (params stay "
+                        "float32); pix2pix trains in float32 regardless")
     p.add_argument("--grad_accum", type=int, default=None,
                    help="micro-steps per optimizer update (effective batch "
                         "= grad_accum * batch_size)")
@@ -65,7 +69,7 @@ def parse(argv=None):
     p.add_argument("--small", action="store_true",
                    help="a small model of the recipe's variant, for runs on "
                         "the CPU: image 64, latent 16, channel plan "
-                        "64-64-32-32-16-8, widths 8")
+                        "64-64-32-32-16-8, widths 8; pix2pix depth 6")
     return p.parse_args(argv)
 
 

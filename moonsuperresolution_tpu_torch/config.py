@@ -4,9 +4,8 @@ presets, and ``DSRConfig`` for the large-raster inference path.
 
 Left out, because nothing in the port reads them: ``fuse_spade_gb`` (the
 port always issues the SPADE gamma/beta convs as one conv);
-``pix2pix_depth``, which waits for the pix2pix slice; ``TrainConfig``'s
-``mesh_shape`` (multi-device runs are a later slice) and
-``keep_checkpoints`` (read by nothing in the JAX package either); the
+``TrainConfig``'s ``mesh_shape`` (multi-device runs are a later slice)
+and ``keep_checkpoints`` (read by nothing in the JAX package either); the
 ``DataConfig`` fields of the crops, prefetch and workers, which nothing in
 the JAX package reads either (its sampler hard-codes its crops);
 and the TPU-only inference knobs ``use_pallas_patches`` (the port always
@@ -42,6 +41,7 @@ class ModelConfig:
     normal_loss_coeff: float = 1.0
     gradient_loss_coeff: float = 1.0
     l1_lambda: float = 100.0  # pix2pix
+    pix2pix_depth: int = 8    # U-Net depth (8 = reference; lower for tests)
     # Box size of the consistency loss (the JAX package standardises on 16).
     upscaling_factor: int = 16
     channel_plan: tuple = (1024, 1024, 1024, 512, 256, 128)
@@ -134,8 +134,7 @@ RECIPES = {
                           normal_loss_coeff=0.5, gradient_loss_coeff=0.5),
         batch_size=2, epochs=100,
     ),
-    # train_pix2pix.py:24-48: pix2pix at 256, batch 64, Adam(2e-4, b1=0.5);
-    # its trainer is a later slice of the port.
+    # train_pix2pix.py:24-48: pix2pix at 256, batch 64, Adam(2e-4, b1=0.5).
     "pix2pix": _preset(
         "pix2pix",
         model=ModelConfig(variant="pix2pix", image_size=256),

@@ -51,6 +51,7 @@ from moonsuperresolution_tpu_torch.geo.tiff import TiffReader, write_geotiff
 from moonsuperresolution_tpu_torch.infer.fill import fill_nodata
 from moonsuperresolution_tpu_torch.models.gaugan import (
     DTYPES,
+    VARIANTS,
     GauGAN,
     QuantizedGauGAN,
     StaticQuantizedGauGAN,
@@ -92,8 +93,15 @@ def load_model_fn(model_path: Optional[str], kind: str, image_size: int,
     "int8" with dynamic activation scales, "int8_static" with calibrated
     ones.  ``int8_acc`` is its conv result type: "bfloat16" (the sum
     rounded once to bf16) or "int32" (exact).
+
+    The engine serves the GauGAN family only, as the JAX engine does (its
+    ``GauGANTrainer`` asserts the variant): any other ``kind`` (pix2pix)
+    raises a ValueError.
     """
     dev = resolve_device(device)
+    if kind not in VARIANTS:
+        raise ValueError(f"the map engine serves the GauGAN family "
+                         f"{VARIANTS}, not {kind!r}")
     if quantize not in QUANTIZE_MODES:
         raise ValueError(f"unknown quantize mode {quantize!r}; one of "
                          f"{QUANTIZE_MODES}")

@@ -4,8 +4,8 @@ of moonsuperresolution_tpu/models/vgg.py; reference: spade/losses.py:56-80).
 The reference compares the MAE of the five ``block{i}_conv1`` activations
 (after ReLU) of Keras' imagenet VGG19, weighted 1/32, 1/16, 1/8, 1/4 and 1,
 after caffe preprocessing.  Pretrained weights come from a Keras ``.h5`` or
-from the ``.npz`` that the JAX package's ``save_vgg19_npz`` writes
-(``cli/convert_vgg.py``); nothing is downloaded.  Without weights the
+from the ``.npz`` that ``cli/convert_vgg.py`` (this package's or the JAX
+package's ``save_vgg19_npz``) writes; nothing is downloaded.  Without weights the
 trainer falls back to fixed-seed random features, loudly.  The network runs
 in float32, as the JAX module does, whatever the generator's compute dtype.
 """

@@ -8,12 +8,13 @@ whole validation set, whatever ``max_steps_per_epoch`` says (it sets only
 the logging interval and the epoch a resume starts from; by default it is
 the number of whole global batches in the training set).  On synthetic
 terrain: ``steps`` training batches and ``steps // 10`` (at least one)
-validation batches.  Validation uses a fixed per-epoch latent draw; every
-``checkpoint_every_epochs`` the loop writes the whole state
-(``checkpoints/latest.pt``, for resume) and the weights
-(``models/<run>/epoch_<e>.pt``, which ``infer.engine.load_model_fn``
-serves).  Batches are made as NHWC numpy on the host by a prefetch thread
-and go to the card as pinned NCHW tensors.
+validation batches.  Validation uses a fixed per-epoch draw (GauGAN's
+latent, pix2pix's dropout masks); every ``checkpoint_every_epochs`` the
+loop writes the whole state (``checkpoints/latest.pt``, for resume) and
+the weights of every network (``models/<run>/epoch_<e>.pt``;
+``infer.engine.load_model_fn`` serves a GauGAN-family one).  Batches are
+made as NHWC numpy on the host by a prefetch thread and go to the card as
+pinned NCHW tensors.
 
 One difference from the JAX loop: a training set with fewer samples than
 one batch raises a ValueError before training starts (the JAX loop fails

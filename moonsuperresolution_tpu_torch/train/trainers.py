@@ -1,6 +1,7 @@
-"""The GauGAN-family trainer (counterpart of moonsuperresolution_tpu/train/
-trainers.py::GauGANTrainer and ``make_trainer``; reference: spade/models/
-model.py, GauGAN:440-567, GauGAN_no_KL:141-267, CNNSpade:714-791).
+"""The trainers (counterpart of moonsuperresolution_tpu/train/trainers.py:
+``GauGANTrainer``, ``Pix2PixTrainer`` and ``make_trainer``; reference:
+spade/models/model.py, GauGAN:440-567, GauGAN_no_KL:141-267,
+CNNSpade:714-791; pix2pix.py:143-176).
 
 One ``train_step`` is the reference's two-phase eager step:
 
@@ -23,6 +24,10 @@ stay float32; ``compute_dtype="bfloat16"`` makes the modules compute in bf16
 ``optax.MultiSteps``: the gradients of k micro-steps are mean-accumulated
 (Welford's running mean, as optax does), Adam applies on every k-th, and
 the parameters do not move in between; ``step`` counts micro-steps.
+
+pix2pix's step is not two-phase: the generator's and the discriminator's
+gradients come from one forward pass with one set of dropout masks, and
+the two Adams (2e-4, beta1 0.5) apply together (``Pix2PixTrainer``).
 """
 
 from __future__ import annotations
@@ -40,9 +45,37 @@ from moonsuperresolution_tpu_torch.models import vgg as vggmod
 from moonsuperresolution_tpu_torch.models.gaugan import DTYPES, GauGAN
 from moonsuperresolution_tpu_torch.models.layers import init_params
 from moonsuperresolution_tpu_torch.models.networks import SpadeDiscriminator
+from moonsuperresolution_tpu_torch.models.pix2pix import (
+    Pix2PixDiscriminator,
+    Pix2PixGenerator,
+    init_pix2pix,
+)
 
 
-class GauGANTrainer:
+class _Accumulating:
+    """``_apply``: one optimizer's update, or ``grad_accum``'s running mean
+    of the gradients (optax.MultiSteps); the subclass holds ``cfg``,
+    ``step`` (micro-steps) and ``accum``."""
+
+    def _apply(self, opt, params, prefix):
+        """Adam on ``params``' gradients, or on their running mean every
+        ``grad_accum``-th micro-step (optax.MultiSteps)."""
+        k = self.cfg.grad_accum
+        if k > 1:
+            n = self.step % k
+            for i, p in enumerate(params):
+                key = f"{prefix}{i}"
+                acc = self.accum.get(key)
+                acc = p.grad if acc is None else acc + (p.grad - acc) / (n + 1)
+                self.accum[key] = acc
+                if n == k - 1:
+                    p.grad = self.accum.pop(key)
+            if n != k - 1:
+                return
+        opt.step()
+
+
+class GauGANTrainer(_Accumulating):
     """Trainer of the gaugan, gaugan_no_kl and cnn_spade variants.
 
     ``nets`` holds ``encoder``, ``generator`` and (but for cnn_spade)
@@ -108,8 +141,8 @@ class GauGANTrainer:
                     "RANDOM conv features, a different objective than the "
                     "reference's imagenet-VGG19 (spade/losses.py:56-80). "
                     "Convert real weights with `python -m "
-                    "moonsuperresolution_tpu.cli.convert_vgg` and pass the "
-                    ".npz (or a Keras .h5).", stacklevel=2)
+                    "moonsuperresolution_tpu_torch.cli.convert_vgg` and pass "
+                    "the .npz (or a Keras .h5).", stacklevel=2)
                 model = vggmod.init_vgg(
                     torch.Generator().manual_seed(self.cfg.seed))
             self._vgg = model.to(self.device)
@@ -159,23 +192,6 @@ class GauGANTrainer:
 
     def _total_key(self):
         return "total_loss" if self.variant == "cnn_spade" else "gen_loss"
-
-    def _apply(self, opt, params, prefix):
-        """Adam on ``params``' gradients, or on their running mean every
-        ``grad_accum``-th micro-step (optax.MultiSteps)."""
-        k = self.cfg.grad_accum
-        if k > 1:
-            n = self.step % k
-            for i, p in enumerate(params):
-                key = f"{prefix}{i}"
-                acc = self.accum.get(key)
-                acc = p.grad if acc is None else acc + (p.grad - acc) / (n + 1)
-                self.accum[key] = acc
-                if n == k - 1:
-                    p.grad = self.accum.pop(key)
-            if n != k - 1:
-                return
-        opt.step()
 
     # --------------------------------------------------------- train step
 
@@ -228,10 +244,87 @@ class GauGANTrainer:
         return self._generate(source, eps, generator)[0]
 
 
+class Pix2PixTrainer(_Accumulating):
+    """Trainer of the pix2pix variant (pix2pix.py:143-176).
+
+    ``nets`` holds ``generator`` and ``discriminator`` under the JAX
+    parameter tree's names.  One ``train_step`` is one forward pass: the
+    generator's gradients of ``BCE(1, D(fake)) + l1_lambda L1`` and the
+    discriminator's of ``BCE(1, D(real)) + BCE(0, D(fake))``, both taken
+    with the same dropout masks, then both Adams together (the
+    discriminator is not updated before the generator's loss, as GauGAN's
+    is).  ``val_step`` keeps dropout on and the batch statistics, as the
+    reference's validation does; ``forward`` runs without dropout.  The
+    masks come from ``masks`` when given (the parity tests feed JAX's),
+    else from the caller's ``torch.Generator``.  ``compute_dtype`` is
+    ignored: the JAX modules take no ``dtype`` and train in float32.
+    """
+
+    def __init__(self, cfg: TrainConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        with torch.device(self.device):
+            self.generator = Pix2PixGenerator(cfg.model.pix2pix_depth)
+            self.discriminator = Pix2PixDiscriminator()
+        self.nets = nn.ModuleDict({"generator": self.generator,
+                                   "discriminator": self.discriminator})
+        o = cfg.optimizer
+        adam = dict(betas=(o.beta1, o.beta2), eps=o.eps)
+        self.gen_opt = torch.optim.Adam(self.generator.parameters(),
+                                        lr=o.gen_lr, **adam)
+        self.disc_opt = torch.optim.Adam(self.discriminator.parameters(),
+                                         lr=o.disc_lr, **adam)
+        self.step = 0
+        self.accum: dict[str, torch.Tensor] = {}
+
+    def init(self, generator: torch.Generator | None = None):
+        """normal(0.02) kernels, zero biases, unit BatchNorm scales, as the
+        JAX modules' init; ``generator`` lives on the trainer's device."""
+        init_pix2pix(self.nets, generator)
+        return self
+
+    def _losses(self, source, target, train, masks, generator):
+        fake = self.generator(source, train, masks, generator)
+        d_real = self.discriminator(source, target)
+        d_fake = self.discriminator(source, fake)
+        g_total, gan, l1 = L.pix2pix_generator_loss(
+            d_fake, fake, target, self.cfg.model.l1_lambda)
+        d_loss = L.pix2pix_discriminator_loss(d_real, d_fake)
+        return {"gen_loss": g_total, "gan_loss": gan, "l1_loss": l1,
+                "disc_loss": d_loss}, fake
+
+    def train_step(self, source, target, masks=None, generator=None):
+        """One micro-step on NCHW float32 ``source`` [B, 2, I, I] and
+        ``target`` [B, 1, I, I].  Returns (metrics, fake): the JAX metric
+        keys, each a 0-d tensor, and the generator's output."""
+        metrics, fake = self._losses(source, target, True, masks, generator)
+        gen_p = list(self.generator.parameters())
+        disc_p = list(self.discriminator.parameters())
+        g_grads = torch.autograd.grad(metrics["gen_loss"], gen_p,
+                                      retain_graph=True)
+        d_grads = torch.autograd.grad(metrics["disc_loss"], disc_p)
+        for p, g in zip(gen_p + disc_p, g_grads + d_grads):
+            p.grad = g
+        self._apply(self.gen_opt, gen_p, "g")
+        self._apply(self.disc_opt, disc_p, "d")
+        self.step += 1
+        return {k: v.detach() for k, v in metrics.items()}, fake.detach()
+
+    @torch.no_grad()
+    def val_step(self, source, target, masks=None, generator=None):
+        """The losses without updates, dropout on (pix2pix.py:163-169)."""
+        return self._losses(source, target, True, masks, generator)
+
+    @torch.no_grad()
+    def forward(self, source):
+        """The generator without dropout."""
+        return self.generator(source)
+
+
 def make_trainer(cfg: TrainConfig, vgg: nn.Module | None = None,
-                 device=None) -> GauGANTrainer:
+                 device=None) -> GauGANTrainer | Pix2PixTrainer:
+    """The variant's trainer; ``vgg`` feeds the GauGAN family's perceptual
+    loss (pix2pix has none)."""
     if cfg.model.variant == "pix2pix":
-        raise NotImplementedError(
-            "the pix2pix trainer (models/pix2pix.py, Pix2PixTrainer) is a "
-            "later slice of the port")
+        return Pix2PixTrainer(cfg, device=device)
     return GauGANTrainer(cfg, vgg=vgg, device=device)

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX, nor the JAX package, nor
-OpenCV, nor (at import) matplotlib, h5py or tensorboardX, and its entry
-points refuse to run on the CPU unless asked to."""
+OpenCV, nor (at import) matplotlib, h5py, TensorFlow or tensorboardX, and
+its entry points refuse to run on the CPU unless asked to."""
 
 import json
 import os
@@ -12,6 +12,7 @@ import torch
 
 from moonsuperresolution_tpu_torch.cli import (
     compare_maps,
+    convert_vgg,
     make_h5,
     merge_maps,
     process_full_tiles,
@@ -41,7 +42,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "cv2", "matplotlib", "h5py",
-                                    "tensorboardX")
+                                    "tensorflow", "keras", "tensorboardX")
              or m == "moonsuperresolution_tpu"
              or m.startswith("moonsuperresolution_tpu."))
 print(json.dumps({"modules": names, "bad": bad}))
@@ -51,7 +52,8 @@ print(json.dumps({"modules": names, "bad": bad}))
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """Nor cv2 nor h5py: the machine with the card has neither (the port
     reads and writes the tile store with its own data/hdf5.py); nor
-    matplotlib, absent there too, or tensorboardX at import (the logger
+    matplotlib, absent there too, or at import TensorFlow (the Keras
+    importer imports it to read a SavedModel) or tensorboardX (the logger
     imports it when asked to log)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
@@ -66,7 +68,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "models.vgg", "data.sampler", "utils.checkpoint",
                  "utils.colorize", "ops.gradients", "cli.train",
                  "data.hdf5", "data.h5_builder", "data.wac_tiler",
-                 "cli.make_h5", "cli.tile_wac", "cli.compare_maps"):
+                 "cli.make_h5", "cli.tile_wac", "cli.compare_maps",
+                 "models.pix2pix", "cli.convert_vgg"):
         assert f"moonsuperresolution_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -88,9 +91,10 @@ def _enter(entry, tmp_path, cpu):
     flag = ["--device", "cpu"] if cpu else []
     if entry == "train":
         return train(TRAIN_CFG, synthetic=False, log=False, **dev)
-    if entry == "cli.train":
+    if entry in ("cli.train", "cli.train pix2pix"):
+        recipe = ["--recipe", "pix2pix"] if entry.endswith("pix2pix") else []
         return cli_train.run(["--output_path", str(tmp_path), "--no_log",
-                               *flag])
+                               *recipe, *flag])
     if entry == "engine":
         return DEMSuperResolution(DSRConfig(**CFG), **dev)
     if entry == "process_map":
@@ -105,7 +109,7 @@ def _enter(entry, tmp_path, cpu):
 
 
 ENTRIES = ["engine", "process_map", "load_model_fn", "process_full_tiles",
-           "train", "cli.train"]
+           "train", "cli.train", "cli.train pix2pix"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -125,7 +129,7 @@ def test_cpu_only_when_asked(no_card, tmp_path):
     for entry in ("process_map", "process_full_tiles"):
         with pytest.raises(ValueError, match="not found"):
             _enter(entry, tmp_path, cpu=True)
-    for entry in ("train", "cli.train"):
+    for entry in ("train", "cli.train", "cli.train pix2pix"):
         with pytest.raises(ValueError, match="h5_path, train_pkl and val_pkl"):
             _enter(entry, tmp_path, cpu=True)
 
@@ -147,11 +151,13 @@ def test_merge_maps_needs_no_card(no_card, tmp_path, flags):
      FileNotFoundError),
     (compare_maps, ["--a", "{d}/a.tif", "--b", "{d}/b.tif"],
      FileNotFoundError),
+    (convert_vgg, ["--input", "{d}/vgg19.pth", "--output", "{d}/vgg19.npz"],
+     FileNotFoundError),
 ])
 def test_data_clis_need_no_card(no_card, tmp_path, cli, argv, error):
-    """The dataset tools and the map comparison are host numpy: without a
-    card they get as far as the missing inputs, and they have no --device
-    to ask for one."""
+    """The dataset tools, the map comparison and the VGG19 converter are
+    host code: without a card they get as far as the missing inputs, and
+    they have no --device to ask for one."""
     argv = [a.format(d=tmp_path) for a in argv]
     with pytest.raises(error):
         cli.run(argv)

@@ -38,7 +38,10 @@ from moonsuperresolution_tpu_torch.infer.engine import (
     load_model_fn,
 )
 from moonsuperresolution_tpu_torch.train.loop import TBLogger, train
-from moonsuperresolution_tpu_torch.train.trainers import make_trainer
+from moonsuperresolution_tpu_torch.train.trainers import (
+    Pix2PixTrainer,
+    make_trainer,
+)
 from moonsuperresolution_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     restore_params,
@@ -342,10 +345,13 @@ def test_cli_refuses_multi_device_flags(argv):
 
 
 def test_pix2pix_and_datasets_wait_for_later_slices(tmp_path):
-    """pix2pix is a later slice; a run from the store without its paths
-    says which it needs."""
-    with pytest.raises(NotImplementedError, match="pix2pix"):
-        make_trainer(RECIPES["pix2pix"], device="cpu")
+    """The pix2pix recipe gets its own trainer (tests/test_torch_pix2pix.py
+    holds it to JAX's); a run from the store without its paths says which
+    it needs."""
+    tr = make_trainer(RECIPES["pix2pix"], device="cpu")
+    assert isinstance(tr, Pix2PixTrainer)
+    assert set(tr.nets) == {"generator", "discriminator"}
+    assert tr.cfg.model.pix2pix_depth == 8
     with pytest.raises(ValueError, match="h5_path, train_pkl and val_pkl"):
         train(cfg(output_path=str(tmp_path)), synthetic=False, device="cpu")
 
@@ -443,6 +449,22 @@ def test_train_from_the_store_refuses_an_epoch_without_a_batch(store,
     with pytest.raises(ValueError, match="holds 7 training samples, fewer "
                                          "than one batch of 8"):
         train(c, synthetic=False, log=False, device="cpu")
+
+
+def test_pix2pix_trains_from_the_store(store, tmp_path):
+    """The pix2pix recipe (depth 6 at image 64) through ``train`` from the
+    store: the whole epoch (3 batches of 2), finite losses, and an
+    ``epoch_0.pt`` holding both networks as they ended."""
+    c = dataclasses.replace(
+        RECIPES["pix2pix"], batch_size=2, epochs=1, output_path=str(tmp_path),
+        data=store, model=dataclasses.replace(
+            RECIPES["pix2pix"].model, image_size=64, pix2pix_depth=6))
+    tr, history = train(c, synthetic=False, log=False, device="cpu")
+    assert isinstance(tr, Pix2PixTrainer) and tr.step == 3
+    assert all(np.isfinite(v) for part in ("train", "val")
+               for v in history[0][part].values())
+    (weights,) = glob.glob(str(tmp_path / "models" / "*" / "epoch_0.pt"))
+    state_equal(tr.nets.state_dict(), restore_params(weights))
 
 
 def test_cli_trains_from_the_store(store, tmp_path):
