@@ -114,10 +114,39 @@ prints no result.  Phases; any failure exits non-zero:
         ``load_params`` and the engine gives the same mean map bit for
         bit; a stream with two same-shape convs swapped is refused.
 
+  9. The multi-device layer on the one card (parallel/):
+     a. a process group of one on NCCL (local TCP store) and
+        ``make_mesh((1, 1))``: full-width spade_256 in bf16, batch 16,
+        through the data-parallel code (moment all-reduces, gradient and
+        metric averages), equal to the same step without a group within
+        6c's bounds; its ms per step beside the group-free trainer's;
+     b. gloo on CUDA tensors probed by two processes, then the training
+        CLI (``--distributed --backend gloo``) in two processes sharing
+        the card, full-width spade_256 bf16 on synthetic terrain: on a DP
+        mesh 2,1 (8 rows each) and a TP mesh 1,2 (the 1024-wide blocks
+        sharded); each first step held to the one-process step on the
+        same global batch at rtol 2e-3 / atol 1e-4, later steps timed;
+     c. the map CLI in two processes (one tile-list shard each) over
+        phase 5's map with phase 5a's weights, merged by the merge CLI:
+        equal to 5a's map bit for bit, or within rtol 1e-3 (said which);
+        each worker's patch-kernel launches (at least the 6 tiles);
+     d. ``DEMSuperResolution(mesh=make_mesh((2, 1), devices=[cuda:0,
+        cuda:0]))`` over phase 3's raster, bf16 and int8_static: the maps
+        of the serial loop bit for bit, both kernels counted;
+     e. the tile loop's and the train loop's ``profile_dir`` traces, the
+        tile's naming the patch kernel.
+     The workers of b and c are this script (``--worker``), each a
+     subprocess with a time limit.
+
+Before it exits, the script (and each worker) stops and reaps every
+process it started that still runs: the fill's fork server and resource
+tracker, and anything a worker left behind (the script is their subreaper).
+A process it cannot stop fails the run.
+
 The line before the last is the kernels' JSON record (launches summed over
-phase 3's tile loops, every map run, phase 7d and phase 8d); the last line is
-``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes the whole
-record (every qconv shape's row) to FILE.
+phase 3's tile loops, every map run, phase 7d, phase 8d, and phase 9c's
+and 9d's); the last line is ``{"ok": true, "device": {...}}``.  ``--out
+FILE`` also writes the whole record (every qconv shape's row) to FILE.
 """
 
 from __future__ import annotations
@@ -168,6 +197,109 @@ def cuda_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# --------------------------------------------------------- child processes
+
+
+def adopt_orphans():
+    """Make this process the subreaper of everything it starts (Linux
+    ``PR_SET_CHILD_SUBREAPER``): a process whose parent ends first, such as
+    a worker's fork server, is then re-parented here, so that
+    ``stop_children`` still finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    check(libc.prctl(36, 1, 0, 0, 0) == 0,  # 36: PR_SET_CHILD_SUBREAPER
+          f"prctl(PR_SET_CHILD_SUBREAPER) failed: errno {ctypes.get_errno()}")
+
+
+def descendants():
+    """(pid, state, command name) of every process below this one, from
+    /proc, parents before children."""
+    children = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:  # ended meanwhile
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        comm = stat[stat.index("(") + 1 : stat.rindex(")")]
+        children.setdefault(int(ppid), []).append((int(name), state, comm))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for child in children.get(todo.pop(0), []):
+            out.append(child)
+            todo.append(child[0])
+    return out
+
+
+def stop_children(grace=5.0):
+    """Stop and reap every process this one started that still runs, and
+    print what it stopped.  The fill's process pools leave
+    multiprocessing's fork server and resource tracker behind; each lives
+    until its parent ends, so both are stopped through their own shutdown
+    (the server first: it holds the tracker's pipe).  Anything else gets
+    SIGTERM, and SIGKILL after ``grace`` seconds."""
+    import multiprocessing.forkserver as forkserver
+    import multiprocessing.resource_tracker as resource_tracker
+    import signal
+
+    def live():
+        return [(pid, comm) for pid, state, comm in descendants()
+                if state != "Z"]
+
+    def signal_all(procs, sig, name):
+        for pid, comm in procs:
+            stopped.append(f"{comm} {pid} ({name})")
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+
+    def wait_for(procs, seconds):
+        end = time.monotonic() + seconds
+        while procs and time.monotonic() < end:
+            time.sleep(0.05)
+            now = {pid for pid, _ in live()}
+            procs = [p for p in procs if p[0] in now]
+        return procs
+
+    stopped = []
+    server = forkserver._forkserver
+    if server._forkserver_pid is not None:
+        stopped.append(f"fork server {server._forkserver_pid}")
+        try:
+            server._stop()
+        except ChildProcessError:  # already reaped
+            pass
+    tracker = resource_tracker._resource_tracker
+    others = [p for p in live() if p[0] != tracker._pid]
+    signal_all(others, signal.SIGTERM, "SIGTERM")
+    signal_all(wait_for(others, grace), signal.SIGKILL, "SIGKILL")
+    if tracker._pid is not None:
+        stopped.append(f"resource tracker {tracker._pid}")
+        try:
+            tracker._stop()
+        except ChildProcessError:
+            pass
+    end = time.monotonic() + 2.0
+    while True:  # reap what was re-parented here and has ended
+        try:
+            while os.waitpid(-1, os.WNOHANG)[0]:
+                pass
+        except ChildProcessError:
+            pass
+        left = [f"{comm} {pid}" for pid, _, comm in descendants()]
+        if not left or time.monotonic() > end:
+            break
+        time.sleep(0.05)
+    print(f"[processes] stopped at the end: {', '.join(stopped) or 'none'}; "
+          f"left: {', '.join(left) or 'none'}", file=sys.stderr, flush=True)
+    return left
 
 
 # ----------------------------------------------------------------- phase 1
@@ -434,7 +566,9 @@ def synthetic_raster(h, w, seed):
     return img, dem
 
 
-def run_map(eng, img, dem):
+def run_map(eng, img, dem, profile_dir=None):
+    """The tile loop over an in-RAM raster (``run_tiles``: serial, or
+    tile-parallel on the engine's mesh); returns the tiles and the maps."""
     eng.img, eng.dem, eng.dem_shape = img.copy(), dem.copy(), dem.shape
     eng.pad_inputs()
     tiles = eng.generate_tile_list()
@@ -445,7 +579,7 @@ def run_map(eng, img, dem):
     def commit(px, py, out):
         eng._commit_tile((px, py, out), *maps)
 
-    eng.run_tiles_serial(tiles, commit)
+    eng.run_tiles(tiles, commit, profile_dir=profile_dir)
     return tiles, maps
 
 
@@ -1010,7 +1144,9 @@ def check_map(m, res, stays, filled, what):
     return cover
 
 
-def full_map(dev, model, kernels, seed):
+def full_map(dev, model, kernels, seed, td):
+    """Phase 5 in ``td``, which keeps the map, the weights' ``gaugan.npz``
+    and 5a's output (``model/``) for phase 9c."""
     import torch
 
     from moonsuperresolution_tpu_torch.cli import merge_maps
@@ -1024,84 +1160,82 @@ def full_map(dev, model, kernels, seed):
     )
 
     stats, launches = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_map_") as td:
-        stays, filled = synthetic_map(td, seed + 1)
-        geom = ["--source_folder_path", td]
-        for key in ("image_size", "stride", "tile_size", "batch_size"):
-            geom += [f"--{key}", str(PROD[key])]
+    stays, filled = synthetic_map(td, seed + 1)
+    geom = ["--source_folder_path", td]
+    for key in ("image_size", "stride", "tile_size", "batch_size"):
+        geom += [f"--{key}", str(PROD[key])]
 
-        # a. the real model through the real CLI
-        npz = os.path.join(td, "gaugan.npz")
-        save_npz(npz, export_params(model))
-        torch.cuda.reset_peak_memory_stats(dev)
-        out = os.path.join(td, "model")
-        model_argv = geom + ["--map_name", "map", "--model_path", npz,
-                             "--model_kind", "gaugan"]
-        res, launches["model in RAM"] = run_cli(
-            kernels, cli, model_argv + ["--save_path", out], "bf16 model")
-        torch.cuda.synchronize()
-        stats.update({f"map_{k}": v for k, v in res.items()})
-        stats["map_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-        m = read_triple(out, "map")
-        cover = check_map(m, res, stays, filled, "bf16 map")
-        stats["map_coverage"] = float(cover.mean())
+    # a. the real model through the real CLI
+    npz = os.path.join(td, "gaugan.npz")
+    save_npz(npz, export_params(model))
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = os.path.join(td, "model")
+    model_argv = geom + ["--map_name", "map", "--model_path", npz,
+                         "--model_kind", "gaugan"]
+    res, launches["model in RAM"] = run_cli(
+        kernels, cli, model_argv + ["--save_path", out], "bf16 model")
+    torch.cuda.synchronize()
+    stats.update({f"map_{k}": v for k, v in res.items()})
+    stats["map_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    m = read_triple(out, "map")
+    cover = check_map(m, res, stays, filled, "bf16 map")
+    stats["map_coverage"] = float(cover.mean())
 
-        # e. the same weights, int8_static, streaming: calibrated once
-        out_q = os.path.join(td, "int8_static")
-        cal, real = [], StaticQuantizedGauGAN.calibrate_on
+    # e. the same weights, int8_static, streaming: calibrated once
+    out_q = os.path.join(td, "int8_static")
+    cal, real = [], StaticQuantizedGauGAN.calibrate_on
 
-        def counting(self, batch):
-            cal.append(batch.shape[0])
-            return real(self, batch)
+    def counting(self, batch):
+        cal.append(batch.shape[0])
+        return real(self, batch)
 
-        StaticQuantizedGauGAN.calibrate_on = counting
-        try:
-            res, launches["int8_static streaming"] = run_cli(
-                kernels, cli, model_argv + [
-                    "--save_path", out_q, "--quantize", "int8_static",
-                    "--streaming"], "int8_static streaming", (PATCHES, QCONV))
-        finally:
-            StaticQuantizedGauGAN.calibrate_on = real
-        torch.cuda.synchronize()
-        os.remove(npz)
-        stats.update({f"map_int8_static_{k}": v for k, v in res.items()})
-        check(len(cal) == 1 and 1 <= cal[0] <= 8,
-              f"int8_static map: calibrations {cal}")
-        q = read_triple(out_q, "map")
-        check_map(q, res, stays, filled, "int8_static map")
-        check((q["good"] == m["good"]).all(),
-              "int8_static map: coverage differs from the bf16 map's")
-        stats["map_int8_static_mean_abs_diff_vs_bf16_m"] = float(
-            np.abs(q["mean"][cover] - m["mean"][cover]).mean())
+    StaticQuantizedGauGAN.calibrate_on = counting
+    try:
+        res, launches["int8_static streaming"] = run_cli(
+            kernels, cli, model_argv + [
+                "--save_path", out_q, "--quantize", "int8_static",
+                "--streaming"], "int8_static streaming", (PATCHES, QCONV))
+    finally:
+        StaticQuantizedGauGAN.calibrate_on = real
+    torch.cuda.synchronize()
+    stats.update({f"map_int8_static_{k}": v for k, v in res.items()})
+    check(len(cal) == 1 and 1 <= cal[0] <= 8,
+          f"int8_static map: calibrations {cal}")
+    q = read_triple(out_q, "map")
+    check_map(q, res, stays, filled, "int8_static map")
+    check((q["good"] == m["good"]).all(),
+          "int8_static map: coverage differs from the bf16 map's")
+    stats["map_int8_static_mean_abs_diff_vs_bf16_m"] = float(
+        np.abs(q["mean"][cover] - m["mean"][cover]).mean())
 
-        # b. identity model, in RAM against streaming: the same files
-        ident = geom + ["--map_name", "map"]
-        for mode, flags in (("ram", []), ("st", ["--streaming"])):
-            _, launches[f"identity {mode}"] = run_cli(
-                kernels, cli, ident + ["--save_path",
-                                       os.path.join(td, mode)] + flags,
-                f"identity {mode}")
-        a = read_triple(os.path.join(td, "ram"), "map")
-        check((a["good"] > 0).mean() > 0.3, "identity map: little coverage")
-        same_files(os.path.join(td, "ram"), os.path.join(td, "st"),
-                   "streaming against in RAM")
+    # b. identity model, in RAM against streaming: the same files
+    ident = geom + ["--map_name", "map"]
+    for mode, flags in (("ram", []), ("st", ["--streaming"])):
+        _, launches[f"identity {mode}"] = run_cli(
+            kernels, cli, ident + ["--save_path",
+                                   os.path.join(td, mode)] + flags,
+            f"identity {mode}")
+    a = read_triple(os.path.join(td, "ram"), "map")
+    check((a["good"] > 0).mean() > 0.3, "identity map: little coverage")
+    same_files(os.path.join(td, "ram"), os.path.join(td, "st"),
+               "streaming against in RAM")
 
-        # c. identity model, 2 shards merged against the whole runs
-        for mode, flags in (("ram", []), ("st", ["--streaming"])):
-            sh = os.path.join(td, f"{mode}_shards")
-            for i in range(2):
-                _, launches[f"identity {mode} shard {i}"] = run_cli(
-                    kernels, cli, ident + ["--save_path", sh,
-                                           "--shard_index", str(i),
-                                           "--num_shards", "2"] + flags,
-                    f"identity {mode} shard {i}")
-            merge_maps.run(["--save_path", sh, "--map_name", "map",
-                            "--num_shards", "2"] + flags)
-            same_files(os.path.join(td, mode), sh, f"{mode} shards")
+    # c. identity model, 2 shards merged against the whole runs
+    for mode, flags in (("ram", []), ("st", ["--streaming"])):
+        sh = os.path.join(td, f"{mode}_shards")
+        for i in range(2):
+            _, launches[f"identity {mode} shard {i}"] = run_cli(
+                kernels, cli, ident + ["--save_path", sh,
+                                       "--shard_index", str(i),
+                                       "--num_shards", "2"] + flags,
+                f"identity {mode} shard {i}")
+        merge_maps.run(["--save_path", sh, "--map_name", "map",
+                        "--num_shards", "2"] + flags)
+        same_files(os.path.join(td, mode), sh, f"{mode} shards")
 
-        # d. the resizes of the map's preprocessing, card against CPU
-        stats["resize_card_vs_cpu_max_abs_err"] = resizes_card_vs_cpu(
-            dev, os.path.join(td, "run-DEM.tif"))
+    # d. the resizes of the map's preprocessing, card against CPU
+    stats["resize_card_vs_cpu_max_abs_err"] = resizes_card_vs_cpu(
+        dev, os.path.join(td, "run-DEM.tif"))
     stats["map_launches"] = launches
     return stats
 
@@ -1354,19 +1488,27 @@ def updates_near_cpu(card, cpu, start, o, noisy):
     its network) of the CPU trainer's own; the parameters named in
     ``noisy`` move by at most lr.  Returns the largest raw difference, the
     count beyond 1e-5 and the count checked."""
-    card_params = {k: v.cpu() for k, v in card.nets.state_dict().items()}
-    grads = dict(cpu.nets.named_parameters())
+    return updates_near(
+        {k: v.cpu() for k, v in card.nets.state_dict().items()},
+        {n: (p.detach(), p.grad) for n, p in cpu.nets.named_parameters()},
+        start, o, noisy)
+
+
+def updates_near(card_params, ref, start, o, noisy):
+    """``updates_near_cpu`` on CPU tensors: the card side's updated
+    parameters, and the reference side's (updated parameter, gradient) by
+    name."""
     gmax = {}
-    for name, p in grads.items():
+    for name, (_, grad) in ref.items():
         if name not in noisy:
             g = name.split(".")[0]
-            gmax[g] = max(gmax.get(g, 0.0), float(p.grad.abs().max()))
+            gmax[g] = max(gmax.get(g, 0.0), float(grad.abs().max()))
     over, n, raw_max = 0, 0, 0.0
-    for name, p in grads.items():
-        g = p.grad.double().numpy()
+    for name, (param, grad) in ref.items():
+        g = grad.double().numpy()
         lr = o.disc_lr if name.startswith("discriminator.") else o.gen_lr
         u = (card_params[name].double() - start[name].double()).numpy()
-        diff = np.abs(card_params[name].numpy() - p.detach().numpy())
+        diff = np.abs(card_params[name].numpy() - param.numpy())
         if name in noisy:
             check(np.abs(u).max() <= lr * (1 + 1e-3),
                   f"card vs CPU: {name} moved by {np.abs(u).max()}")
@@ -1925,10 +2067,474 @@ def pix2pix_and_import(dev, seed, kernels):
     return stats
 
 
+# ----------------------------------------------------------------- phase 9
+
+DP_RTOL, DP_ATOL = 2e-3, 1e-4       # tests/test_torch_distributed.py
+STEPS_9B = 5                        # step 0 held, steps 2-4 timed
+WORKER_TIMEOUT = 420
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spade_256(compute_dtype="bfloat16"):
+    import dataclasses
+
+    from moonsuperresolution_tpu_torch.config import RECIPES
+
+    cfg = RECIPES["spade_256"]
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype=compute_dtype))
+
+
+def ms_per_step(tr, batches, gen):
+    """2 warm-up steps, then 5 timed to a host readback of the losses."""
+    import torch
+
+    for i in range(TRAIN_WARMUP):
+        tr.train_step(*batches[i % 2], generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [tr.train_step(*batches[i % 2], generator=gen)[0]
+           for i in range(TRAIN_TIMED)]
+    check(all(np.isfinite(float(v)) for o in out for v in o.values()),
+          "a loss is not finite")
+    return (time.perf_counter() - t0) / TRAIN_TIMED * 1e3
+
+
+def nccl_world_one(dev, seed, kernels):
+    """9a: a process group of one on NCCL (a local TCP store), the trainer
+    on ``make_mesh((1, 1))``: full-width spade_256 in bf16, batch 16,
+    through the data-parallel code (every SPADE moment all-reduced, the
+    gradients averaged, the metrics averaged), against the same trainer
+    without a group from the same weights, batch and draws: losses within
+    rtol 1e-4 and the updates within 6c's bound.  A group of one changes
+    no value, so the compared step runs cuDNN's deterministic algorithms
+    on both sides (bf16 gradients from atomics-reducing algorithms differ
+    between two runs by a bf16 ulp, beyond 6c's float32 bound), and the
+    updates are also counted bit for bit.  Then ms per step of each (2 +
+    5 steps, cuDNN's defaults, as 6a)."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.parallel.distributed import (
+        initialize,
+        shutdown,
+    )
+    from moonsuperresolution_tpu_torch.parallel.mesh import (
+        make_mesh,
+        shard_state_for_dp_tp,
+    )
+    from moonsuperresolution_tpu_torch.train.trainers import make_trainer
+
+    cfg = spade_256()
+    ref = make_trainer(cfg, device=dev).init(
+        torch.Generator(dev).manual_seed(seed))
+    start = {k: v.to("cpu", copy=True)
+             for k, v in ref.nets.state_dict().items()}
+    batches = synthetic_batches(256, cfg.batch_size, 2, seed, dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    eps = [torch.randn((cfg.batch_size, cfg.model.latent_dim), generator=g,
+                       device=dev) for _ in range(2)]
+    initialize(f"localhost:{free_port()}", 1, 0, device=dev,
+               backend="nccl")
+    try:
+        dp = make_trainer(cfg, device=dev)
+        dp.nets.load_state_dict(ref.nets.state_dict())
+        shard_state_for_dp_tp(dp, make_mesh((1, 1), device=dev))
+        check(dp.data_axis.group is not None
+              and dp.nets["generator"].resblock_0.data_axis.group is not None,
+              "9a: the trainer is not on the group")
+        torch.backends.cudnn.deterministic = True
+        try:
+            (want, _), (got, _) = (
+                tr.train_step(*batches[0], eps_d=eps[0], eps_g=eps[1])
+                for tr in (ref, dp))
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        differ = sum(not torch.equal(a, b) for a, b in zip(
+            ref.nets.parameters(), dp.nets.parameters()))
+        loss_err = max(abs(float(got[k]) - float(v)) / abs(float(v))
+                       for k, v in want.items())
+        check(loss_err <= 1e-4, f"9a: losses differ by {loss_err} relative")
+        raw_max, over, n = updates_near(
+            {k: v.cpu() for k, v in dp.nets.state_dict().items()},
+            {k: (p.detach().cpu(), p.grad.cpu())
+             for k, p in ref.nets.named_parameters()},
+            start, cfg.optimizer, set(normalised_biases(cfg.model)))
+        gen = torch.Generator(dev).manual_seed(seed + 1)
+        ref_ms = ms_per_step(ref, batches, gen)
+        dp_ms = ms_per_step(dp, batches, gen)
+    finally:
+        shutdown()
+    del ref, dp, batches
+    torch.cuda.empty_cache()
+    return dict(nccl1_loss_max_rel_err=loss_err,
+                nccl1_tensors_not_bit_equal=differ,
+                nccl1_param_max_abs_diff=raw_max,
+                nccl1_params_over_1e5=over, nccl1_params_checked=n,
+                nccl1_ms_per_step=dp_ms, nccl1_no_group_ms_per_step=ref_ms)
+
+
+def run_workers(kind, argvs, what):
+    """``chip_smoke.py --worker kind -- argv`` once per argv, all at once,
+    from this script's directory; each must exit 0 within
+    ``WORKER_TIMEOUT``.  Returns each one's ``WORKER`` record and the
+    seconds to the last one's end."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", kind, "--",
+         *argv], cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for argv in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    secs = time.perf_counter() - t0
+    records = []
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("WORKER ")]
+        if p.returncode != 0 or not lines:
+            print(f"[{what}] worker {i} (rc {p.returncode}):\n{out[-3000:]}"
+                  f"\n{err[-6000:]}", file=sys.stderr)
+        check(p.returncode == 0 and lines,
+              f"{what}: worker {i} exited {p.returncode}")
+        print(f"[{what}] worker {i}: {lines[-1]}")
+        records.append(json.loads(lines[-1][len("WORKER "):]))
+    return records, secs
+
+
+def group_flags(n, rank, port, backend="gloo"):
+    return ["--distributed", "--coordinator", f"localhost:{port}",
+            "--num_processes", str(n), "--process_id", str(rank),
+            "--backend", backend]
+
+
+def dp_reference(dev, seed, parts, compute_dtype):
+    """The one-process step that a run of the training CLI on a mesh takes
+    first: the loop's init (``seed``), latent generator (``seed + 1``) and
+    augmentation (``default_rng(seed)`` in every process), on the global
+    batch made of each data-axis process's rows (``parts``: (sampler
+    seed, rows), in process order).  Returns the metrics."""
+    import dataclasses
+
+    import torch
+
+    from moonsuperresolution_tpu_torch.data.sampler import (
+        SyntheticSampler,
+        augment_batch,
+    )
+    from moonsuperresolution_tpu_torch.train.loop import to_device
+    from moonsuperresolution_tpu_torch.train.trainers import make_trainer
+
+    cfg = dataclasses.replace(spade_256(compute_dtype), seed=seed)
+    xs, ys = [], []
+    for sampler_seed, rows in parts:
+        x, y = next(SyntheticSampler(hw=256, seed=sampler_seed)
+                    .batches(rows, 1))
+        x, y = augment_batch(x, y, np.random.default_rng(seed))
+        xs.append(x)
+        ys.append(y)
+    tr = make_trainer(cfg, device=dev).init(
+        torch.Generator(dev).manual_seed(seed))
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    m, _ = tr.train_step(to_device(np.concatenate(xs), dev),
+                         to_device(np.concatenate(ys), dev), generator=gen)
+    out = {k: float(v) for k, v in m.items()}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_processes_on_one_card(dev, seed):
+    """9b: gloo on CUDA tensors, probed first (two processes, one
+    all-reduce), then the training CLI in two processes on the one card at
+    full width (spade_256, synthetic, global batch 16): on a DP mesh 2,1
+    (8 rows each) and a TP mesh 1,2 (min_dim 512: the four 1024-wide
+    blocks, the 1024 -> 512 block and the latent dense sharded).
+
+    Each mesh runs twice.  In float32 (TF32 off), one step, held to the
+    one-process float32 step on the same global batch (``dp_reference``)
+    at the DP bounds (rtol 2e-3 / atol 1e-4, a float32 bound).  With
+    ``--bf16``, ``STEPS_9B`` steps, the later ones timed; its first step's
+    difference from the one-process bf16 step is recorded beside the
+    one-process bf16 step's own distance from the float32 one: bf16
+    rounding, not the DP code, sets how far a near-zero mean such as
+    ``g_hinge`` moves when the batch is split (float32 holds the bound,
+    bf16 by a few 1e-4 does not)."""
+    import torch
+
+    port = free_port()
+    probe, _ = run_workers("probe", [group_flags(2, r, port)
+                                     for r in range(2)], "9b gloo probe")
+    check(all(r["sum"] == [3.0, 3.0] for r in probe),
+          f"9b: gloo all-reduce of a CUDA tensor gave {probe}")
+    stats = {}
+    refs = {"dp": [(seed, 8), (seed + 1000, 8)], "tp": [(seed, 16)]}
+    for name, mesh in (("dp", "2,1"), ("tp", "1,2")):
+        st = stats[f"gloo2_{name}"] = {"mesh": mesh}
+        for dtype in ("float32", "bfloat16"):
+            bf16 = dtype == "bfloat16"
+            steps = STEPS_9B if bf16 else 1
+            torch.cuda.empty_cache()
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_9b_") as td:
+                port = free_port()
+                argv = ["--recipe", "spade_256", "--synthetic", "--no_log",
+                        "--mesh", mesh, "--batch_size", "16", "--epochs",
+                        "1", "--max_steps_per_epoch", str(steps), "--seed",
+                        str(seed), "--output_path", td] + (
+                            ["--bf16"] if bf16 else [])
+                recs, secs = run_workers(
+                    "train", [argv + group_flags(2, r, port)
+                              for r in range(2)], f"9b {name} {mesh} {dtype}")
+            first = [r["steps"][0] for r in recs]
+            check(first[0] == first[1], f"9b {name} {dtype}: the processes' "
+                  f"losses differ: {first}")
+            want = dp_reference(dev, seed, refs[name], dtype)
+            check(set(first[0]) == set(want),
+                  f"9b {name}: metrics {sorted(first[0])}")
+            errs = {k: abs(first[0][k] - v) for k, v in want.items()}
+            rec = dict(first_step=first[0], reference=want, abs_err=errs,
+                       max_rel_err=max(errs[k] / abs(v)
+                                       for k, v in want.items()),
+                       peak_mem_gib=[r["peak_mem_gib"] for r in recs],
+                       sharded=recs[0]["sharded"], run_s=secs)
+            if bf16:
+                f32 = st["float32"]["reference"]
+                rec["bf16_vs_float32"] = {k: abs(f32[k] - v)
+                                          for k, v in want.items()}
+                rec["ms_per_step"] = [np.mean(np.diff(r["step_s"][1:])) * 1e3
+                                      for r in recs]
+            else:
+                bad = {k: (first[0][k], v) for k, v in want.items()
+                       if errs[k] > DP_ATOL + DP_RTOL * abs(v)}
+                check(not bad, f"9b {name} float32: first step off the "
+                      f"one-process step: {bad}")
+            st[dtype] = rec
+    return stats
+
+
+def map_across_processes(kernels, td):
+    """9c: the map CLI in two processes on the one card (``--distributed``
+    with gloo: one tile-list shard each), bf16 full-width GauGAN over
+    phase 5's map, merged by the merge CLI; against phase 5a's in-RAM map,
+    bit for bit or else within rtol 1e-3 (and which).  Each worker prints
+    its patch-kernel launches; their sum must cover the map's 6 tiles."""
+    from moonsuperresolution_tpu_torch.cli import merge_maps
+
+    out = os.path.join(td, "two_processes")
+    argv = ["--source_folder_path", td, "--map_name", "map", "--save_path",
+            out, "--model_path", os.path.join(td, "gaugan.npz"),
+            "--model_kind", "gaugan"]
+    for key in ("image_size", "stride", "tile_size", "batch_size"):
+        argv += [f"--{key}", str(PROD[key])]
+    port = free_port()
+    recs, secs = run_workers("map", [argv + group_flags(2, r, port)
+                                     for r in range(2)], "9c")
+    launches = sum(r["launches"] for r in recs)
+    check(launches >= 6 and sorted(r["stats"]["tiles"] for r in recs)
+          == [3, 3], f"9c: {launches} patch launches, {recs}")
+    kernels[0]["launches"] += launches
+    merge_maps.run(["--save_path", out, "--map_name", "map",
+                    "--num_shards", "2"])
+    want, got = read_triple(os.path.join(td, "model"), "map"), \
+        read_triple(out, "map")
+    same = all(np.array_equal(got[k], want[k]) for k in got)
+    if not same:
+        check(np.array_equal(got["good"], want["good"]),
+              "9c: coverage differs from phase 5a's")
+        cover = want["good"] > 0
+        for k in ("mean", "std"):
+            check(np.allclose(got[k][cover], want[k][cover], rtol=1e-3,
+                              atol=0), f"9c: {k} beyond rtol 1e-3")
+    diff = max(float(np.abs(got[k].astype(np.float64) - want[k]).max())
+               for k in ("mean", "std"))
+    return dict(map2_bit_for_bit=same, map2_max_abs_diff=diff,
+                map2_launches=[r["launches"] for r in recs],
+                map2_tiles_s=[r["stats"]["tiles_s"] for r in recs],
+                map2_preprocess_s=[r["stats"]["preprocess_s"] for r in recs],
+                map2_run_s=secs)
+
+
+def tile_parallel(dev, seed, kernels, model, img, dem, prof_dir):
+    """9d: ``DEMSuperResolution(mesh=make_mesh((2, 1), devices=[card,
+    card]))`` over phase 3's raster (2 tiles: one group, a thread and a
+    stream each) against the serial loop, in bf16 and int8_static (each
+    mode quantized afresh for each run, so that both calibrate once on the
+    same first tile): the maps equal bit for bit; the patch kernel and,
+    in int8_static, the int8 conv counted.  The bf16 serial run traces its
+    second tile into ``prof_dir`` (9e)."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.config import DSRConfig
+    from moonsuperresolution_tpu_torch.infer.engine import (
+        DEMSuperResolution,
+        quantize_model,
+    )
+    from moonsuperresolution_tpu_torch.parallel.mesh import make_mesh
+
+    stats = {}
+    for mode in ("bf16", "int8_static"):
+        maps, secs = {}, {}
+        for how in ("serial", "tile-parallel"):
+            m = model if mode == "bf16" else quantize_model(
+                model, "int8_static", device=dev)
+            mesh = (make_mesh((2, 1), devices=[dev, dev])
+                    if how == "tile-parallel" else None)
+            eng = DEMSuperResolution(DSRConfig(seed=seed, **PROD), model=m,
+                                     device=dev, mesh=mesh)
+            need = [PATCHES] + ([QCONV] if mode != "bf16" else [])
+            prof = prof_dir if (mode, how) == ("bf16", "serial") else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (tiles, maps[how]), launches = counted_run(
+                kernels, lambda: run_map(eng, img, dem, prof), need,
+                f"9d {mode} {how}")
+            torch.cuda.synchronize()
+            secs[how] = time.perf_counter() - t0
+            stats[f"tile_parallel_{mode}_{how}_launches"] = launches
+            del eng, m
+        check(len(tiles) == N_TILES and all(
+            np.array_equal(a, b) for a, b in zip(maps["serial"],
+                                                  maps["tile-parallel"])),
+            f"9d {mode}: the tile-parallel maps differ from the serial ones")
+        stats[f"tile_parallel_{mode}_s"] = secs
+    return stats
+
+
+def train_profile(dev, seed, prof_dir):
+    """9e: ``train(profile_dir=)`` at 6b's small width on the card: the
+    trace of step 1."""
+    from moonsuperresolution_tpu_torch.config import ModelConfig, TrainConfig
+    from moonsuperresolution_tpu_torch.train.loop import train
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_9e_") as td:
+        train(TrainConfig(model=ModelConfig(**TRAIN_SMALL), batch_size=4,
+                          epochs=1, output_path=td, seed=seed),
+              synthetic=True, max_steps_per_epoch=2, log=False, device=dev,
+              profile_dir=prof_dir)
+
+
+def profiles_written(prof_dir):
+    """9e: the tile trace names the patch kernel, the train trace holds
+    device kernels; how many of each trace's lead kernels it lost (see
+    ``utils/profiling.py``)."""
+    from moonsuperresolution_tpu_torch.utils.profiling import (
+        lead_kernels_lost,
+    )
+
+    names = sorted(os.listdir(prof_dir))
+    check(names == ["tile_1.json", "train_step_0.json"],
+          f"9e: traces {names}")
+    sizes, lost = {}, {}
+    for name in names:
+        with open(os.path.join(prof_dir, name)) as f:
+            text = f.read()
+        sizes[name] = len(text)
+        check('"cat": "kernel"' in text, f"9e: {name} holds no device kernel")
+        lost[name] = lead_kernels_lost(json.loads(text)["traceEvents"])
+    with open(os.path.join(prof_dir, "tile_1.json")) as f:
+        text = f.read()
+    check("patches_block_minmax" in text or "patches_normalize" in text,
+          f"9e: the tile trace does not name the patch kernel (lead "
+          f"kernels lost: {lost})")
+    return dict(trace_bytes=sizes, trace_lead_kernels_lost=lost)
+
+
+def multi_device(dev, seed, kernels, model, img, dem, td):
+    """Phase 9: the multi-device layer on the one card."""
+    stats = {}
+    stats.update(nccl_world_one(dev, seed, kernels))
+    stats.update(two_processes_on_one_card(dev, seed))
+    stats.update(map_across_processes(kernels, td))
+    prof_dir = os.path.join(td, "profiles")
+    stats.update(tile_parallel(dev, seed, kernels, model, img, dem,
+                               prof_dir))
+    train_profile(dev, seed, prof_dir)
+    stats.update(profiles_written(prof_dir))
+    return stats
+
+
+# ---------------------------------------------------------------- workers
+
+
+def worker(kind, argv):
+    """One process of phase 9's runs (``--worker``); prints its record as
+    one ``WORKER {json}`` line.
+
+    - probe: joins the group of the flags, all-reduces a CUDA tensor of its
+      rank + 1 (over gloo: the sum is 3 in each element).
+    - train: the training CLI on ``argv``, each step's losses and end time
+      (to a host readback) recorded.
+    - map: the map CLI on ``argv``; its patch-kernel launches."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.parallel import distributed
+
+    if kind == "probe":
+        a = dict(zip(argv[1::2], argv[2::2]))
+        dev = distributed.initialize(a["--coordinator"],
+                                     int(a["--num_processes"]),
+                                     int(a["--process_id"]),
+                                     backend=a["--backend"])
+        t = torch.full((2,), float(int(a["--process_id"]) + 1), device=dev)
+        torch.distributed.all_reduce(t)
+        rec = {"sum": t.cpu().tolist(), "device": str(dev)}
+    elif kind == "train":
+        from moonsuperresolution_tpu_torch.cli import train as cli
+        from moonsuperresolution_tpu_torch.train import trainers
+
+        steps, ends, real = [], [], trainers.GauGANTrainer.train_step
+
+        def recorded(self, *a, **kw):
+            m, fake = real(self, *a, **kw)
+            steps.append({k: float(v) for k, v in m.items()})
+            ends.append(time.perf_counter())
+            return m, fake
+
+        trainers.GauGANTrainer.train_step = recorded
+        tr, _ = cli.run(argv)
+        rec = {"steps": steps, "step_s": ends,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "sharded": sorted(tr.sharded), "device": str(tr.device)}
+    else:
+        from moonsuperresolution_tpu_torch.cli import process_full_tiles
+        from moonsuperresolution_tpu_torch.ops import patches
+
+        stats = process_full_tiles.run(argv)
+        rec = {"launches": patches.extract_normalize_patches.launches,
+               "stats": stats}
+    distributed.shutdown()
+    print("WORKER " + json.dumps(rec), flush=True)
+    return 0
+
+
 # -------------------------------------------------------------------- main
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--worker"] and "--" in argv:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 1
+        try:
+            return worker(argv[1], argv[argv.index("--") + 1 :])
+        finally:
+            stop_children()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the synthetic data")
@@ -1949,7 +2555,9 @@ def main(argv=None):
         return 1
     dev = torch.device("cuda", 0)
     phase = "1 build"
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        adopt_orphans()
         card = card_line()
         print(f"card: {card}")
         qconv_ptxas = build_all()
@@ -2000,8 +2608,7 @@ def main(argv=None):
               f"{stats['small_int8_card_vs_cpu_rel_rmse']:.3g}")
 
         phase = "5 full map"
-        stats.update(full_map(dev, model, kernels, args.seed))
-        del model
+        stats.update(full_map(dev, model, kernels, args.seed, work))
         print(f"[full map] bf16 GauGAN over {MAP_HW[0]} x {MAP_HW[1]} px, "
               f"{stats['map_tiles']} tiles: preprocess_s "
               f"{stats['map_preprocess_s']:.3f}, tiles_s "
@@ -2122,11 +2729,69 @@ def main(argv=None):
               f"engine: the same mean map bit for bit "
               f"({stats['import_direct_launches'][PATCHES]} launches); the "
               f"swapped stream refused")
+
+        phase = "9 multi-device"
+        stats.update(multi_device(dev, args.seed, kernels, model, img, dem,
+                                  work))
+        del model
+        card_tag = f"({card})"
+        print(f"[9a nccl] a group of one on NCCL, spade_256 full width bf16 "
+              f"batch 16: {stats['nccl1_ms_per_step']:.1f} ms/step against "
+              f"{stats['nccl1_no_group_ms_per_step']:.1f} without the group "
+              f"(phase 6a: "
+              f"{stats['train_spade_256_bfloat16']['ms_per_step']:.1f}); "
+              f"losses within {stats['nccl1_loss_max_rel_err']:.3g} "
+              f"relative, parameters within "
+              f"{stats['nccl1_param_max_abs_diff']:.3g} "
+              f"({stats['nccl1_tensors_not_bit_equal']} tensors not bit "
+              f"for bit) {card_tag}")
+        for name in ("dp", "tp"):
+            st = stats[f"gloo2_{name}"]
+            f32, b16 = st["float32"], st["bfloat16"]
+            print(f"[9b gloo] two processes on one card, mesh {st['mesh']} "
+                  f"({len(f32['sharded'])} sharded tensors): float32 first "
+                  f"step within {f32['max_rel_err']:.3g} relative of the "
+                  f"one-process step; bf16 steps 2-4 "
+                  + ", ".join(f"{v:.1f}" for v in b16["ms_per_step"])
+                  + " ms/step per process, peak "
+                  + ", ".join(f"{v:.2f}" for v in b16["peak_mem_gib"])
+                  + " GiB; bf16 first step off the one-process bf16 step "
+                  "by " + ", ".join(f"{k} {v:.3g}"
+                                    for k, v in b16["abs_err"].items())
+                  + " (one-process bf16 off float32 by "
+                  + ", ".join(f"{k} {v:.3g}"
+                              for k, v in b16["bf16_vs_float32"].items())
+                  + f") {card_tag}")
+        print(f"[9c map] two processes, one shard each: tiles_s "
+              + ", ".join(f"{v:.3f}" for v in stats["map2_tiles_s"])
+              + f" (phase 5a: {stats['map_tiles_s']:.3f}), patch launches "
+              f"{stats['map2_launches']}; merged map equal to 5a's "
+              + ("bit for bit" if stats["map2_bit_for_bit"] else
+                 f"within rtol 1e-3 (max abs diff "
+                 f"{stats['map2_max_abs_diff']:.3g})") + f" {card_tag}")
+        for mode in ("bf16", "int8_static"):
+            t = stats[f"tile_parallel_{mode}_s"]
+            print(f"[9d tile-parallel] {mode}, 2 tiles on (cuda:0, cuda:0): "
+                  f"{t['tile-parallel']:.3f} s against {t['serial']:.3f} s "
+                  f"serial, the same maps bit for bit; launches "
+                  f"{stats[f'tile_parallel_{mode}_tile-parallel_launches']}"
+                  f" {card_tag}")
+        print(f"[9e profiles] {stats['trace_bytes']}; lead kernels lost "
+              f"{stats['trace_lead_kernels_lost']}")
     except Exception as e:  # any phase failing fails the run, with its trace
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
+        return 1
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+        left = stop_children()
+    if left:
+        print(f"chip_smoke: processes still running at the end: {left}",
+              file=sys.stderr)
         return 1
 
     record = {"kernels": [

@@ -16,12 +16,34 @@ Runs on the first CUDA card; ``--device cpu`` runs on the CPU.
 same weights at load time.  ``--streaming`` bounds host memory for rasters
 larger than RAM; ``--shard_index/--num_shards`` split the map across jobs,
 merged afterwards by ``moonsuperresolution_tpu_torch.cli.merge_maps``.
+With ``--distributed`` (and ``--coordinator``, ``--num_processes``,
+``--process_id``, or the MOONSR_* variables) the processes of one run
+join a process group, each on ``cuda:{LOCAL_RANK}`` (or ``--device cpu``),
+and, with ``--num_shards 1``, each takes the tile-list shard of its
+process index:
+
+    for i in 0 1; do
+      python -m moonsuperresolution_tpu_torch.cli.process_full_tiles \\
+          --source_folder_path maps/ --map_name m --save_path out \\
+          --device cpu --distributed --coordinator localhost:29500 \\
+          --num_processes 2 --process_id $i &
+    done; wait
+    python -m moonsuperresolution_tpu_torch.cli.merge_maps \\
+        --save_path out --map_name m --num_shards 2
+
+``--backend gloo`` lets processes share one card (NCCL refuses two ranks
+on one device); the map itself needs no collective.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+from moonsuperresolution_tpu_torch.cli.train import (
+    add_distributed_flags,
+    join,
+)
 
 
 def parse(argv=None):
@@ -66,8 +88,10 @@ def parse(argv=None):
     p.add_argument("--streaming", action="store_true",
                    help="bounded-memory row-band pipeline for rasters too "
                         "large for host RAM (dims must divide by 4)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device; 'cpu' runs without a card")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; the process's CUDA card by default, "
+                        "'cpu' runs without one")
+    add_distributed_flags(p)
     return p.parse_args(argv)
 
 
@@ -81,7 +105,15 @@ def run(argv=None) -> dict:
     )
 
     a = parse(argv)
-    device = resolve_device(a.device)
+    device = resolve_device(join(a))
+    if a.distributed or a.coordinator:
+        from moonsuperresolution_tpu_torch.parallel.distributed import (
+            process_info,
+        )
+
+        if a.num_shards == 1:
+            # One tile-list shard per process (merge with cli/merge_maps).
+            a.shard_index, a.num_shards = process_info()
     cfg = DSRConfig(
         image_size=a.image_size, stride=a.stride, batch_size=a.batch_size,
         tile_size=a.tile_size, no_value=a.no_value, map_name=a.map_name,
@@ -109,7 +141,10 @@ def run(argv=None) -> dict:
 
 def main(argv=None) -> int:
     """The console script: 0 once the run is done."""
+    from moonsuperresolution_tpu_torch.parallel.distributed import shutdown
+
     run(argv)
+    shutdown()
     return 0
 
 

@@ -4,8 +4,8 @@ presets, and ``DSRConfig`` for the large-raster inference path.
 
 Left out, because nothing in the port reads them: ``fuse_spade_gb`` (the
 port always issues the SPADE gamma/beta convs as one conv);
-``TrainConfig``'s ``mesh_shape`` (multi-device runs are a later slice)
-and ``keep_checkpoints`` (read by nothing in the JAX package either); the
+``TrainConfig``'s ``keep_checkpoints`` (read by nothing in the JAX
+package either); the
 ``DataConfig`` fields of the crops, prefetch and workers, which nothing in
 the JAX package reads either (its sampler hard-codes its crops);
 and the TPU-only inference knobs ``use_pallas_patches`` (the port always
@@ -92,6 +92,9 @@ class TrainConfig:
     log_every_frac: float = 0.1     # TensorBoard every 10 % of an epoch
     checkpoint_every_epochs: int = 1
     vgg_weights_path: Optional[str] = None
+    # (data, model): the mesh of a multi-process run, one process per
+    # place (train/loop.py); None: no mesh, a one-process run.
+    mesh_shape: Optional[tuple] = None
 
 
 def _preset(recipe: str, **kw) -> TrainConfig:

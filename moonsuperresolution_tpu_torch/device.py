@@ -12,6 +12,8 @@ which TF32 does not touch, so the choice costs it nothing.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -29,3 +31,17 @@ def resolve_device(device=None) -> torch.device:
                 "no CUDA device: pass device='cpu' to run on the CPU")
         set_float32_precision()
     return dev
+
+
+def process_device(device=None, process_index: int = 0) -> torch.device:
+    """The device of one process of a multi-process run: ``cuda:{local
+    rank}``, the local rank being ``LOCAL_RANK`` or else ``process_index``
+    modulo the number of cards; the CPU when ``device`` says "cpu".  A
+    ``device`` with an index is taken as it is.  Raises as
+    ``resolve_device`` does without a card."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    local = os.environ.get("LOCAL_RANK")
+    index = int(local) if local else process_index % torch.cuda.device_count()
+    return torch.device("cuda", index)

@@ -30,13 +30,23 @@ device (ops/resize.py).
 ``int8_static`` re-calibrates its activation scales once, on real patches of
 the first staged slabs, before the first tile (``_maybe_calibrate``).
 
-Not ported yet: the multi-device tile-parallel mode (``process_tile_group``)
-and the tile profile (``profile_dir``).
+Tile-parallel mode (counterpart of the JAX engine's ``process_tile_group``,
+its engine.py:465-494): with a one-process ``mesh`` whose data axis is
+over 1 (``parallel.mesh.make_mesh((D, 1), devices=[...])``),
+``process_map`` runs the tiles in groups of D at once, one per device of the
+data axis, each on its own thread (and CUDA stream), with one model replica
+per distinct device; every tile keeps the generator of its corner, so a
+tile-parallel map equals the serial one.  Across processes the tile list is
+sharded instead (``shard_index / num_shards``, cli/process_full_tiles.py
+``--distributed``).  ``profile_dir``: a ``torch.profiler`` trace of the
+serial loop's second tile (``tile_1.json``).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import copy
 import dataclasses
 import os
 import time
@@ -67,6 +77,7 @@ from moonsuperresolution_tpu_torch.ops.resize import (
 )
 from moonsuperresolution_tpu_torch.utils.checkpoint import restore_params
 from moonsuperresolution_tpu_torch.utils.convert import load_params
+from moonsuperresolution_tpu_torch.utils.profiling import trace
 
 
 QUANTIZE_MODES = ("none", "int8", "int8_static")
@@ -177,15 +188,23 @@ class DEMSuperResolution:
 
     ``model(source, generator=...)`` maps a [B, 2, I, I] batch in the
     compute dtype to [B, 1, I, I] or [B, I, I]; None is the identity model.
+    ``mesh``: a one-process mesh for the tile-parallel mode (its first
+    device is the engine's device unless ``device`` says otherwise).
     """
 
     # Output rows per device pass of the preprocess's cubic upsample.
     CUBIC_BAND_ROWS = 2048
 
     def __init__(self, config: DSRConfig, model: Optional[Callable] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = config
         self.model = model
+        if mesh is not None and mesh.multiprocess:
+            raise ValueError("the engine's mesh is one process's devices; "
+                             "across processes, shard the tile list")
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.geom = TileGeometry(config.image_size, config.stride,
                                  config.tile_size)
@@ -194,6 +213,7 @@ class DEMSuperResolution:
         self.weight = torch.from_numpy(
             gaussian_blend_kernel(config.image_size)).to(self.device)
         self._calibrated = False
+        self._replicas = {}     # tile-parallel: device -> (model, weight)
 
     # ------------------------------------------------------------ rasters
 
@@ -282,9 +302,13 @@ class DEMSuperResolution:
 
     @torch.inference_mode()
     def tile_program(self, img_slab: torch.Tensor, dem_slab: torch.Tensor,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     replica=None):
         """One tile: ``[slab, slab]`` float32 slabs on the engine's device
-        -> (mean, std, good) ``[tile, tile]`` planes on the device."""
+        -> (mean, std, good) ``[tile, tile]`` planes on the device.
+        ``replica``: (model, blend weight) on the slabs' device, for the
+        tile-parallel mode."""
+        model, weight = replica or (self.model, self.weight)
         g = self.geom
         i_sz, s, t, b = g.image_size, g.stride, g.tile_size, self.cfg.batch_size
         n = g.grid * g.grid
@@ -292,7 +316,7 @@ class DEMSuperResolution:
             img_slab, dem_slab, (g.grid, g.grid), s, i_sz, self.no_value)
         x = x.permute(0, 3, 1, 2)  # the kernel's contiguous [N, 2, I, I]
         valid = valid > 0
-        if self.model is None:
+        if model is None:
             # Identity: the low-res DEM channel (elementwise, no batching).
             preds = x[:, 1]
         else:
@@ -312,7 +336,7 @@ class DEMSuperResolution:
                 xb = torch.zeros((b, 2, i_sz, i_sz), dtype=self.compute_dtype,
                                  device=x.device)
                 xb[:k] = x.index_select(0, idx)
-                yb = self.model(xb, generator=generator)
+                yb = model(xb, generator=generator)
                 preds.index_copy_(0, idx, yb.reshape(b, i_sz, i_sz)[:k].float())
 
         # Denormalise: de-centre, then restore the per-patch min-max range
@@ -322,7 +346,7 @@ class DEMSuperResolution:
         vals = vals[:, p0 : i_sz - p0, p0 : i_sz - p0]
         mean, std, _, good = fold_weighted_moments(
             vals.reshape(g.grid, g.grid, g.patch, g.patch),
-            valid.reshape(g.grid, g.grid), self.weight, s)
+            valid.reshape(g.grid, g.grid), weight, s)
         # The fold plane starts at +purge in slab coordinates; the tile is
         # slab [halo : halo + T].
         o = g.halo - p0
@@ -334,11 +358,13 @@ class DEMSuperResolution:
 
     # ----------------------------------------------------------- tile loop
 
-    def tile_generator(self, px: int, py: int) -> torch.Generator:
-        """Deterministic per-tile generator from (config seed, tile corner)."""
+    def tile_generator(self, px: int, py: int,
+                       device=None) -> torch.Generator:
+        """Deterministic per-tile generator from (config seed, tile corner),
+        on ``device`` (the engine's by default)."""
         seed = np.random.SeedSequence([self.cfg.seed, px, py]).generate_state(
             1, np.uint64)[0]
-        return torch.Generator(self.device).manual_seed(int(seed))
+        return torch.Generator(device or self.device).manual_seed(int(seed))
 
     def _slabs(self, px: int, py: int):
         g = self.geom
@@ -373,8 +399,75 @@ class DEMSuperResolution:
             return  # fully invalid slab: the bootstrap scales remain
         self.model.calibrate_on(x.permute(0, 3, 1, 2).index_select(0, idx))
 
+    def _replica(self, dev: torch.device):
+        """(model, blend weight) on ``dev``: the engine's own on its device,
+        else one copy per distinct device, made once (after the int8_static
+        calibration, which the group's first tile runs)."""
+        if dev == self.device:
+            return self.model, self.weight
+        if dev not in self._replicas:
+            model = self.model
+            if model is not None:
+                if not isinstance(model, torch.nn.Module):
+                    raise TypeError("tile-parallel over several devices "
+                                    "needs the model as a torch module")
+                model = copy.deepcopy(model).to(dev)
+            self._replicas[dev] = model, self.weight.to(dev)
+        return self._replicas[dev]
+
+    def process_tile_group(self, tiles: list[tuple[int, int]]):
+        """Up to one tile per device of the mesh's data axis, all at once: a
+        thread per tile, on its device (and a CUDA stream of its own), with
+        the tile's own generator.  The first tile's slabs calibrate an
+        int8_static model once, before any of them runs.  Returns (mean, std,
+        good) per tile, on the tiles' devices, their work finished."""
+        devs = self.mesh.data_devices()
+        if len(tiles) > len(devs):
+            raise ValueError(f"{len(tiles)} tiles for {len(devs)} devices")
+        if tiles:
+            slabs = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in self._slabs(*tiles[0]))
+            self._maybe_calibrate(*slabs)
+
+        def run(dev, px, py):
+            replica = self._replica(dev)
+            stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+            with torch.cuda.stream(stream):     # None: the CPU, no stream
+                img, dem = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                            for a in self._slabs(px, py))
+                out = self.tile_program(img, dem,
+                                        self.tile_generator(px, py, dev),
+                                        replica)
+            if stream is not None:
+                stream.synchronize()
+            return out
+
+        with concurrent.futures.ThreadPoolExecutor(max(1, len(tiles))) as pool:
+            futs = [pool.submit(run, dev, px, py)
+                    for dev, (px, py) in zip(devs, tiles)]
+            return [f.result() for f in futs]
+
+    def run_tiles(self, tiles, commit, progress: bool = False,
+                  profile_dir: Optional[str] = None) -> None:
+        """Every tile of ``tiles`` through ``commit(px, py, out)``:
+        tile-parallel in groups of the mesh's data size when the engine has
+        a mesh whose data axis is over 1 (the JAX engine's rule), else the
+        serial loop (which alone takes ``profile_dir``)."""
+        d = self.mesh.shape["data"] if self.mesh is not None else 1
+        if d <= 1:
+            self.run_tiles_serial(tiles, commit, progress=progress,
+                                  profile_dir=profile_dir)
+            return
+        for gi in range(0, len(tiles), d):
+            group = tiles[gi : gi + d]
+            for (px, py), out in zip(group, self.process_tile_group(group)):
+                commit(px, py, out)
+            if progress:
+                print(f"tiles {gi + len(group)}/{len(tiles)}", flush=True)
+
     def run_tiles_serial(self, tiles, commit, progress: bool = False,
-                         slab_provider=None) -> None:
+                         slab_provider=None,
+                         profile_dir: Optional[str] = None) -> None:
         """Tile loop with staged uploads.  While the card runs tile i, a
         worker thread slices tile i+1's slabs, pins them and copies them up
         on a side CUDA stream; ``commit(px, py, out)`` runs on another
@@ -384,7 +477,9 @@ class DEMSuperResolution:
         ``slab_provider(px, py) -> (img_slab, dem_slab)`` overrides the
         slicing of the padded rasters: the streaming engine cuts slabs out
         of row bands (column slices, made contiguous here before
-        pinning)."""
+        pinning).  ``profile_dir``: the second tile (past the first one's
+        warm-up) runs under ``torch.profiler``, its trace written to
+        ``tile_1.json`` there."""
         cuda = self.device.type == "cuda"
         side = torch.cuda.Stream(self.device) if cuda else None
         slabs = slab_provider or self._slabs
@@ -414,7 +509,11 @@ class DEMSuperResolution:
                     # Allocated on the side stream, read on this one.
                     for a in staged:
                         a.record_stream(torch.cuda.current_stream(self.device))
-                out = self.tile_program(*staged, self.tile_generator(px, py))
+                with (trace(profile_dir, "tile_1", self.device)
+                      if profile_dir and idx == 1
+                      else contextlib.nullcontext()):
+                    out = self.tile_program(*staged,
+                                            self.tile_generator(px, py))
                 if pending is not None:
                     if commit_fut is not None:
                         commit_fut.result()
@@ -453,7 +552,8 @@ class DEMSuperResolution:
     # ---------------------------------------------------------- full maps
 
     def process_map(self, progress: bool = True, shard_index: int = 0,
-                    num_shards: int = 1, fill_method: str = "fast") -> dict:
+                    num_shards: int = 1, fill_method: str = "fast",
+                    profile_dir: Optional[str] = None) -> dict:
         """Full pipeline: load -> preprocess -> pad -> tiles -> 3 GeoTIFFs
         (reference: process_full_tiles.py:568-587).  Returns timing stats;
         the maps stay in ``self.result``.
@@ -461,7 +561,8 @@ class DEMSuperResolution:
         With ``num_shards > 1`` this process runs every ``num_shards``-th
         tile and writes per-tile dumps plus a manifest instead of the full
         maps (concurrent shards on shared storage must not clobber one
-        output path); infer/merge.py::merge_shards reassembles them.
+        output path); infer/merge.py::merge_shards reassembles them.  The
+        tiles run through ``run_tiles`` (tile-parallel on a mesh).
         """
         t0 = time.perf_counter()
         self.load_images()
@@ -482,7 +583,8 @@ class DEMSuperResolution:
                               save_tiles=sharded)
 
         t1 = time.perf_counter()
-        self.run_tiles_serial(tiles, commit, progress=progress)
+        self.run_tiles(tiles, commit, progress=progress,
+                       profile_dir=profile_dir)
         t_tiles = time.perf_counter() - t1
 
         t2 = time.perf_counter()

@@ -18,6 +18,18 @@ Where PyTorch's defaults differ from the reference:
   even size that is 0 before and 1 after, where ``padding=1`` would pad 1
   on both sides (``same_pad``).
 - Initializers are glorot (Keras) rather than torch's Kaiming defaults.
+
+Multi-process runs (parallel/mesh.py sets the axes): with ``data_axis``
+set, the "batch" SPADE moments are those of the global batch, their sums
+all-reduced over the data group (a differentiable all-reduce, as the JAX
+moments' contraction over B becomes one under DP).  With ``model_axis``
+set, a ``SpadeResidualBlock`` runs Megatron-style: conv_1 and conv_3
+column-parallel (their out-channel slice of weight and bias), spade_2 on
+the channel-sharded activations with its own slice of gamma and beta (its
+moments are per channel, so the model group does not communicate), conv_2
+row-parallel (its partial sums all-reduced, its bias added once after),
+and conv_3's sharded skip gathered before ``+ h``, so that a block's output
+is whole on every process.
 """
 
 from __future__ import annotations
@@ -29,6 +41,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from moonsuperresolution_tpu_torch.ops.resize import resize_nearest
+from moonsuperresolution_tpu_torch.parallel.collectives import (
+    ONE,
+    Axis,
+    all_reduce_sum,
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+)
 
 SPADE_EPSILON = 1e-5
 
@@ -141,16 +161,22 @@ class InstanceNorm(nn.Module):
         return (x_hat * gamma + beta).to(self.dtype)
 
 
-def spade_moments(xs: torch.Tensor, stats: str = "batch"):
+def spade_moments(xs: torch.Tensor, stats: str = "batch",
+                  data_axis: Axis = ONE):
     """Single-pass SPADE moments of ``xs`` (already in the stats dtype):
     over (B, H, W) for "batch", the reference's batch-coupled tf.nn.moments,
     or over (H, W) for "instance".  Sums accumulate in float32 and the
     moments are float32, as the JAX ones-matmul reduction's are; the
-    variance is clamped at 0."""
+    variance is clamped at 0.  "batch" sums are summed over ``data_axis``
+    too (each process holds the same number of rows), so the moments are
+    the global batch's."""
     dims = (0, 2, 3) if stats == "batch" else (2, 3)
     n = math.prod(xs.shape[d] for d in dims)
     s1 = xs.sum(dims, keepdim=True, dtype=torch.float32)
     s2 = (xs * xs).sum(dims, keepdim=True, dtype=torch.float32)
+    if stats == "batch" and data_axis.group is not None:
+        s1, s2 = all_reduce_sum(torch.cat([s1, s2]), data_axis).chunk(2)
+        n *= data_axis.size
     mean = s1 / n
     var = torch.clamp(s2 / n - mean * mean, min=0.0)
     return mean, var
@@ -171,9 +197,10 @@ def spade_moments_centered(x: torch.Tensor, stats: str = "batch"):
     return mean, var
 
 
-def spade_normalize(x: torch.Tensor, stats: str, stats_dtype) -> torch.Tensor:
+def spade_normalize(x: torch.Tensor, stats: str, stats_dtype,
+                    data_axis: Axis = ONE) -> torch.Tensor:
     xs = x.to(stats_dtype)
-    mean, var = spade_moments(xs, stats)
+    mean, var = spade_moments(xs, stats, data_axis)
     return (xs - mean) * (1.0 / torch.sqrt(var + SPADE_EPSILON))
 
 
@@ -185,6 +212,12 @@ class SPADE(nn.Module):
     and projected to per-pixel gamma and beta.  The gamma and beta convs run
     as one conv over their concatenated kernels; their parameters stay
     separate (``conv_gamma``, ``conv_beta``), as in the JAX tree.
+
+    With ``model_axis`` (a tensor-parallel block's spade_2), ``x`` holds
+    this process's slice of the channels and the layer makes only that
+    slice of gamma and beta, from its slice of their (replicated) weights;
+    the gradients of the replicated weights and of the shared conv's
+    output are summed over the model group.
     """
 
     def __init__(self, filters: int, hidden: int = 128, stats: str = "batch",
@@ -194,22 +227,28 @@ class SPADE(nn.Module):
         self.stats = stats
         self.dtype = dtype
         self.stats_dtype = stats_dtype
+        self.data_axis = ONE
         self.conv = Conv(2, hidden, 3, dtype=dtype)
         self.conv_gamma = Conv(hidden, filters, 3, dtype=dtype)
         self.conv_beta = Conv(hidden, filters, 3, dtype=dtype)
 
-    def forward(self, x, mask, normalized=None):
+    def forward(self, x, mask, normalized=None, model_axis: Axis = ONE):
         mask = resize_nearest(mask, (x.shape[2], x.shape[3]))
         h = F.relu(self.conv(mask))
-        gb = F.conv2d(
-            h, torch.cat([self.conv_gamma.weight,
-                          self.conv_beta.weight]).to(self.dtype),
-            torch.cat([self.conv_gamma.bias,
-                       self.conv_beta.bias]).to(self.dtype),
-            padding=1)
-        gamma, beta = gb[:, : self.filters], gb[:, self.filters :]
+        params = (self.conv_gamma.weight, self.conv_beta.weight,
+                  self.conv_gamma.bias, self.conv_beta.bias)
+        if model_axis.group is not None:
+            sl = model_axis.part(self.filters)
+            h = copy_to_model(h, model_axis)
+            params = [copy_to_model(t, model_axis)[sl] for t in params]
+        wg, wb, bg, bb = params
+        c = wg.shape[0]
+        gb = F.conv2d(h, torch.cat([wg, wb]).to(self.dtype),
+                      torch.cat([bg, bb]).to(self.dtype), padding=1)
+        gamma, beta = gb[:, :c], gb[:, c:]
         if normalized is None:
-            normalized = spade_normalize(x, self.stats, self.stats_dtype)
+            normalized = spade_normalize(x, self.stats, self.stats_dtype,
+                                         self.data_axis)
         return gamma * normalized.to(self.dtype) + beta
 
 
@@ -217,7 +256,8 @@ class SpadeResidualBlock(nn.Module):
     """SPADE residual block (reference: spade/models/blocks.py:9-38): two
     SPADE -> LeakyReLU -> 3x3 conv passes, with a learned SPADE skip when the
     channel count changes.  spade_1 and spade_3 both normalise the block
-    input and share one normalised tensor (``input_normalized``)."""
+    input and share one normalised tensor (``input_normalized``).  With
+    ``model_axis`` set the block is tensor-parallel (module docstring)."""
 
     def __init__(self, in_filters: int, filters: int, alpha: float = 0.2,
                  stats: str = "batch", dtype=torch.float32,
@@ -226,6 +266,9 @@ class SpadeResidualBlock(nn.Module):
         self.alpha = alpha
         self.stats = stats
         self.stats_dtype = stats_dtype
+        self.dtype = dtype
+        self.data_axis = ONE
+        self.model_axis = ONE
         kw = dict(stats=stats, dtype=dtype, stats_dtype=stats_dtype)
         self.spade_1 = SPADE(in_filters, **kw)
         self.conv_1 = Conv(in_filters, filters, 3, dtype=dtype)
@@ -239,7 +282,10 @@ class SpadeResidualBlock(nn.Module):
 
     def forward(self, x, mask, input_normalized=None):
         if input_normalized is None:
-            input_normalized = spade_normalize(x, self.stats, self.stats_dtype)
+            input_normalized = spade_normalize(x, self.stats, self.stats_dtype,
+                                               self.data_axis)
+        if self.model_axis.group is not None:
+            return self._forward_tp(x, mask, input_normalized)
         a = self.alpha
         h = self.spade_1(x, mask, normalized=input_normalized)
         h = self.conv_1(F.leaky_relu(h, a))
@@ -249,6 +295,31 @@ class SpadeResidualBlock(nn.Module):
             return x + h
         skip = self.spade_3(x, mask, normalized=input_normalized)
         return self.conv_3(F.leaky_relu(skip, a)) + h
+
+    def _column(self, conv: Conv, x):
+        """Column-parallel: whole input, this process's out-channel slice of
+        the weight (held sharded) and of the (replicated) bias."""
+        ax = self.model_axis
+        b = copy_to_model(conv.bias, ax)[ax.part(conv.bias.shape[0])]
+        return conv_same(copy_to_model(x, ax).to(self.dtype),
+                         conv.weight.to(self.dtype), b.to(self.dtype))
+
+    def _forward_tp(self, x, mask, input_normalized):
+        a, ax = self.alpha, self.model_axis
+        h = self.spade_1(x, mask, normalized=input_normalized)
+        h = self._column(self.conv_1, F.leaky_relu(h, a))
+        h = self.spade_2(h, mask, model_axis=ax)
+        # Row-parallel conv_2: this process's in-channels, partial sums
+        # reduced over the model group, the bias added once.
+        h = conv_same(F.leaky_relu(h, a).to(self.dtype),
+                      self.conv_2.weight.to(self.dtype))
+        h = reduce_from_model(h, ax) + self.conv_2.bias.to(
+            self.dtype)[None, :, None, None]
+        if self.spade_3 is None:
+            return x + h
+        skip = self.spade_3(x, mask, normalized=input_normalized)
+        skip = self._column(self.conv_3, F.leaky_relu(skip, a))
+        return gather_from_model(skip, ax, 1) + h
 
 
 class DownsampleBlock(nn.Module):

@@ -29,6 +29,11 @@ from moonsuperresolution_tpu_torch.models.layers import (
     conv_same,
     spade_normalize,
 )
+from moonsuperresolution_tpu_torch.parallel.collectives import (
+    ONE,
+    copy_to_model,
+    reduce_from_model,
+)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -116,6 +121,12 @@ class SpadeGenerator(nn.Module):
     element 4 times, so they are the same), cast to the compute dtype and
     upsampled.  With ``subpixel_head`` the last upsample and the head run
     as a subpixel conv at pre-upsample resolution.
+
+    Multi-process (parallel/mesh.py): ``data_axis`` makes the moments of
+    the between-block normalisation the global batch's; ``model_axis``
+    makes the latent ``dense`` row-parallel (this process's slice of the
+    latent dim, partial products all-reduced over the model group, the
+    bias added once).
     """
 
     def __init__(self, image_size: int, latent_dim: int, alpha: float = 0.2,
@@ -132,6 +143,8 @@ class SpadeGenerator(nn.Module):
         self.dtype = dtype
         self.stats_dtype = stats_dtype
         self.subpixel_head = subpixel_head
+        self.data_axis = ONE
+        self.model_axis = ONE
         c0 = self.channel_plan[0]
         self.dense = Dense(latent_dim, self.sw * self.sw * c0, dtype=dtype)
         cin = c0
@@ -144,7 +157,7 @@ class SpadeGenerator(nn.Module):
 
     def forward(self, latent, source):
         c0 = self.channel_plan[0]
-        x = self.dense(latent)
+        x = self._dense(latent)
         x = x.view(-1, self.sw, self.sw, c0).permute(0, 3, 1, 2)
         x_hat_up = None
         n_blocks = len(self.channel_plan)
@@ -153,7 +166,8 @@ class SpadeGenerator(nn.Module):
                                                input_normalized=x_hat_up)
             if i + 1 == n_blocks and self.subpixel_head:
                 break
-            x_hat = spade_normalize(x, self.stats, self.stats_dtype)
+            x_hat = spade_normalize(x, self.stats, self.stats_dtype,
+                                    self.data_axis)
             x_hat_up = upsample2x_nearest(x_hat.to(self.dtype))
             x = upsample2x_nearest(x)
         x = F.leaky_relu(x, 0.2)
@@ -164,6 +178,15 @@ class SpadeGenerator(nn.Module):
             x = conv_same(x, w, b)
         # DEM output in float32 for the denormalisation math.
         return x.float()
+
+    def _dense(self, latent):
+        ax = self.model_axis
+        if ax.group is None:
+            return self.dense(latent)
+        d, dt = self.dense, self.dtype
+        z = copy_to_model(latent, ax)[:, ax.part(latent.shape[1])]
+        y = F.linear(z.to(dt), d.weight.to(dt))
+        return reduce_from_model(y, ax) + d.bias.to(dt)
 
 
 class SpadeDiscriminator(nn.Module):

@@ -35,6 +35,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from moonsuperresolution_tpu_torch.models.layers import Conv
+from moonsuperresolution_tpu_torch.parallel.collectives import (
+    ONE,
+    all_reduce_sum,
+)
 
 BN_EPSILON = 1e-3
 LEAKY_SLOPE = 0.3
@@ -47,16 +51,28 @@ SOURCE_CHANNELS, TARGET_CHANNELS = 2, 1     # (ortho, low-res DEM) -> DEM
 
 class BatchStatNorm(nn.Module):
     """BatchNorm that always uses the batch's statistics (the only mode the
-    reference runs)."""
+    reference runs): biased moments over (N, H, W), two-pass as JAX's
+    ``jnp.var``.  With ``data_axis`` set (parallel/mesh.py) they are the
+    global batch's: the sum of x, then the sum of the squared deviations
+    from the global mean, each all-reduced over the data group
+    (differentiably)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.data_axis = ONE
 
     def forward(self, x):
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0,
-                                   keepdim=True)
+        ax = self.data_axis
+        if ax.group is None:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0,
+                                       keepdim=True)
+        else:
+            n = x.shape[0] * x.shape[2] * x.shape[3] * ax.size
+            mean = all_reduce_sum(x.sum((0, 2, 3), keepdim=True), ax) / n
+            var = all_reduce_sum(
+                (x - mean).square().sum((0, 2, 3), keepdim=True), ax) / n
         x_hat = (x - mean) * torch.rsqrt(var + BN_EPSILON)
         return x_hat * self.scale[None, :, None, None] \
             + self.bias[None, :, None, None]
@@ -129,12 +145,14 @@ class Pix2PixGenerator(nn.Module):
                  size >> (self.depth - 1 - i), size >> (self.depth - 1 - i))
                 for i in range(min(DROPOUT_BLOCKS, self.depth - 1))]
 
-    def draw_masks(self, x, generator=None):
-        """Bernoulli(1 - rate) keep masks (bool) for the input ``x``, drawn
-        from ``generator`` on ``x``'s device."""
+    def draw_masks(self, x, generator=None, batch=None):
+        """Bernoulli(1 - rate) keep masks (bool) for the input ``x``, or for
+        ``batch`` rows of its size, drawn from ``generator`` on ``x``'s
+        device."""
         keep = 1.0 - DROPOUT_RATE
+        batch = x.shape[0] if batch is None else batch
         return [torch.rand(s, generator=generator, device=x.device) < keep
-                for s in self.dropout_shapes(x.shape[0], x.shape[-1])]
+                for s in self.dropout_shapes(batch, x.shape[-1])]
 
     def forward(self, x, train: bool = False, masks=None, generator=None):
         """``train``: dropout on, with ``masks`` (the three up blocks' keep

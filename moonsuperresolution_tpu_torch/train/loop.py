@@ -20,6 +20,22 @@ One difference from the JAX loop: a training set with fewer samples than
 one batch raises a ValueError before training starts (the JAX loop fails
 with an IndexError after its empty epoch).
 
+Multi-process runs (``parallel.distributed.initialize`` first; the JAX
+loop's rules, its loop.py:114-123, 144-175, 186-193, 257-267): the mesh
+comes from ``mesh`` or ``cfg.mesh_shape`` and the trainer goes on it
+(``shard_state_for_dp_tp``, after a restore); the global batch must divide
+by the process count and by the data axis.  The processes of the data
+axis split each global batch (local batch = global / data axis size; with
+no model axis that is the process count), each drawing its rows from a
+disjoint slice of the store (``TileSampler(process_index=,
+process_count=)``) or from synthetic terrain seeded ``cfg.seed + 1000 *
+index`` (``+ 1`` for validation); the processes of one model group draw
+the same rows (the JAX loop, which divides by the process count, does not
+say what a model axis across processes should read).  Every process runs
+the same number of steps (``itertools.islice``); only process 0 logs, and
+process 0 writes the checkpoints.  ``profile_dir``: a ``torch.profiler``
+trace of step 1 of the first epoch, one file per process.
+
 TensorBoard tags follow the reference (train/ and test/ writers, a scalar
 per loss, GT / pred / input_hmap / input_image panels in ``jet``).  As in
 the JAX loop, ``norm_loss`` is the surface-normal loss and ``grad_loss``
@@ -29,6 +45,8 @@ the image-gradient loss; the reference logs them under each other's name
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import os
 import time
 from typing import Optional
@@ -44,6 +62,11 @@ from moonsuperresolution_tpu_torch.data.sampler import (
     augment_batch,
 )
 from moonsuperresolution_tpu_torch.device import resolve_device
+from moonsuperresolution_tpu_torch.parallel.distributed import process_info
+from moonsuperresolution_tpu_torch.parallel.mesh import (
+    make_mesh,
+    shard_state_for_dp_tp,
+)
 from moonsuperresolution_tpu_torch.train.trainers import make_trainer
 from moonsuperresolution_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
@@ -51,6 +74,7 @@ from moonsuperresolution_tpu_torch.utils.checkpoint import (
     save_params,
 )
 from moonsuperresolution_tpu_torch.utils.colorize import colorize
+from moonsuperresolution_tpu_torch.utils.profiling import trace
 
 SYNTHETIC_STEPS = 8     # steps per epoch of a synthetic run (as in JAX)
 
@@ -116,11 +140,30 @@ def nhwc(t: torch.Tensor) -> np.ndarray:
 
 def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
           max_steps_per_epoch: Optional[int] = None, log: bool = True,
-          device=None):
+          device=None, mesh=None, profile_dir: Optional[str] = None):
     """Runs the recipe; returns (trainer, history), one history entry (mean
-    train and validation metrics, seconds) per epoch."""
-    dev = resolve_device(device)
-    trn, val = _samplers(cfg, synthetic)
+    train and validation metrics, seconds) per epoch.  ``mesh``: a
+    multi-process mesh (default: ``cfg.mesh_shape``'s, when set)."""
+    pindex, pcount = process_info()
+    if mesh is None and cfg.mesh_shape:
+        mesh = make_mesh(tuple(cfg.mesh_shape), device=device)
+    if pcount > 1:
+        if mesh is None:
+            raise ValueError("multi-process training requires a mesh "
+                             "(--mesh / cfg.mesh_shape)")
+        if cfg.batch_size % pcount:
+            raise ValueError(f"global batch_size {cfg.batch_size} must "
+                             f"divide by the process count {pcount}")
+        log = log and pindex == 0
+    if mesh is not None and cfg.batch_size % mesh.shape["data"]:
+        raise ValueError(f"batch_size {cfg.batch_size} must divide by the "
+                         f"data axis ({mesh.shape['data']})")
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    # This process's place on the data axis: its rows and its data.
+    dindex, dcount = ((mesh.data.index, mesh.data.size)
+                      if mesh is not None and mesh.multiprocess else (0, 1))
+    bs = cfg.batch_size // dcount
+    trn, val = _samplers(cfg, synthetic, dindex, dcount)
     run_name = time.strftime("%Y%m%d-%H%M%S")
     out = cfg.output_path
     model_dir = os.path.join(out, "models", run_name)
@@ -137,8 +180,9 @@ def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
     resumed = resume and os.path.isfile(latest)
     if resumed:
         restore_checkpoint(latest, trainer, gen)
+    if mesh is not None:
+        shard_state_for_dp_tp(trainer, mesh)
 
-    bs = cfg.batch_size
     steps = max_steps_per_epoch or _steps_per_epoch(cfg, synthetic, trn)
     start_epoch = trainer.step // steps if resumed else 0
     if resumed:
@@ -150,12 +194,18 @@ def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
         train_acc = []
-        for step, (x, y) in enumerate(
-                BatchPrefetcher(_epoch_batches(trn, bs, steps, synthetic),
-                                depth=4)):
+        it = _epoch_batches(trn, bs, steps, synthetic)
+        if pcount > 1:
+            # Every process takes the agreed step count (ragged local
+            # shards would desynchronise the collectives).
+            it = itertools.islice(it, steps)
+        for step, (x, y) in enumerate(BatchPrefetcher(it, depth=4)):
             x, y = augment_batch(x, y, aug_rng)
-            metrics, fake = trainer.train_step(
-                to_device(x, dev), to_device(y, dev), generator=gen)
+            with (trace(profile_dir, f"train_step_{pindex}", dev)
+                  if profile_dir and epoch == start_epoch and step == 1
+                  else contextlib.nullcontext()):
+                metrics, fake = trainer.train_step(
+                    to_device(x, dev), to_device(y, dev), generator=gen)
             train_acc.append(metrics)
             if step % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
@@ -170,7 +220,10 @@ def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
         val_gen = torch.Generator(dev).manual_seed(
             cfg.seed * 2**32 + 2**31 + epoch)
         val_acc = []
-        val_it = _epoch_batches(val, bs, max(1, steps // 10), synthetic)
+        val_steps = max(1, steps // 10)
+        val_it = _epoch_batches(val, bs, val_steps, synthetic)
+        if pcount > 1:
+            val_it = itertools.islice(val_it, val_steps)
         for vx, vy in BatchPrefetcher(val_it, depth=2):
             vm, vf = trainer.val_step(to_device(vx, dev), to_device(vy, dev),
                                       generator=val_gen)
@@ -189,7 +242,7 @@ def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
         if (epoch + 1) % cfg.checkpoint_every_epochs == 0:
             save_checkpoint(latest, trainer, gen)
             save_params(os.path.join(model_dir, f"epoch_{epoch}.pt"),
-                        trainer.nets)
+                        trainer)
     tb_train.close()
     tb_val.close()
     if not synthetic:
@@ -198,25 +251,29 @@ def train(cfg: TrainConfig, resume: bool = False, synthetic: bool = False,
     return trainer, history
 
 
-def _samplers(cfg: TrainConfig, synthetic: bool):
-    """The training and validation samplers, seeded ``cfg.seed`` and
-    ``cfg.seed + 1``."""
+def _samplers(cfg: TrainConfig, synthetic: bool, index: int = 0,
+              count: int = 1):
+    """The training and validation samplers of the process at ``index`` of
+    ``count`` on the data axis: synthetic ones seeded ``cfg.seed + 1000 *
+    index`` and ``cfg.seed + 1 + 1000 * index``, or its slices of the store
+    seeded ``cfg.seed`` and ``cfg.seed + 1``."""
     size = cfg.model.image_size
     if synthetic:
-        return (SyntheticSampler(hw=size, seed=cfg.seed),
-                SyntheticSampler(hw=size, seed=cfg.seed + 1))
+        return (SyntheticSampler(hw=size, seed=cfg.seed + 1000 * index),
+                SyntheticSampler(hw=size, seed=cfg.seed + 1 + 1000 * index))
     d = cfg.data
     if not (d.h5_path and d.train_pkl and d.val_pkl):
         raise ValueError("training from the HDF5 tile store needs "
                          "cfg.data's h5_path, train_pkl and val_pkl "
                          "(--path_h5, --path_trn, --path_val), or "
                          "synthetic=True (--synthetic)")
-    kw = dict(hw=size, upscaling=cfg.model.upscaling_factor)
+    kw = dict(hw=size, upscaling=cfg.model.upscaling_factor,
+              process_index=index, process_count=count)
     trn = TileSampler(d.h5_path, d.train_pkl, seed=cfg.seed, **kw)
-    if trn.num_samples < cfg.batch_size:
+    if trn.global_num_samples < cfg.batch_size:
         trn.close()
-        raise ValueError(f"{d.train_pkl} holds {trn.num_samples} training "
-                         f"samples, fewer than one batch of "
+        raise ValueError(f"{d.train_pkl} holds {trn.global_num_samples} "
+                         f"training samples, fewer than one batch of "
                          f"{cfg.batch_size}")
     return trn, TileSampler(d.h5_path, d.val_pkl, seed=cfg.seed + 1, **kw)
 

@@ -28,6 +28,21 @@ the parameters do not move in between; ``step`` counts micro-steps.
 pix2pix's step is not two-phase: the generator's and the discriminator's
 gradients come from one forward pass with one set of dropout masks, and
 the two Adams (2e-4, beta1 0.5) apply together (``Pix2PixTrainer``).
+
+Data parallelism (``parallel.mesh.shard_state_for_dp_tp`` sets
+``data_axis``): each process steps on its rows of the global batch.  The
+models' SPADE and BatchNorm moments are the global batch's; the latents
+and dropout masks are drawn for the global batch from the same-seeded
+generator on every process, and each process takes its rows (given
+``eps_d``/``eps_g``/``masks`` are the global batch's too), so a step does
+not depend on the process count; each optimizer's gradients are averaged
+over the data group by hand right before its ``opt.step()`` (on the
+k-th micro-step's mean with ``grad_accum``).  ``DistributedDataParallel``
+is not used: GauGAN freezes the discriminator between two backward
+passes, pix2pix takes two ``autograd.grad`` of one graph, and DDP's
+reducer follows neither.  The metrics are averaged over the data group,
+and the KL term, a sum over the batch, is scaled by the data axis' size,
+so every process reports the global batch's losses.
 """
 
 from __future__ import annotations
@@ -50,16 +65,43 @@ from moonsuperresolution_tpu_torch.models.pix2pix import (
     Pix2PixGenerator,
     init_pix2pix,
 )
+from moonsuperresolution_tpu_torch.parallel.collectives import ONE, average_
 
 
 class _Accumulating:
     """``_apply``: one optimizer's update, or ``grad_accum``'s running mean
     of the gradients (optax.MultiSteps); the subclass holds ``cfg``,
-    ``step`` (micro-steps) and ``accum``."""
+    ``step`` (micro-steps) and ``accum``.  The data-parallel helpers read
+    ``data_axis``."""
+
+    # Set by parallel.mesh.shard_state_for_dp_tp.
+    mesh = None
+    sharded: dict = {}
+    sharded_params: frozenset = frozenset()
+    data_axis = model_axis = ONE
+
+    def _rows(self, t):
+        """This process's rows of a global-batch tensor (all of it in one
+        process)."""
+        ax = self.data_axis
+        return t if t is None or ax.group is None else t[ax.part(t.shape[0])]
+
+    def _global(self, batch: int) -> int:
+        return batch * self.data_axis.size
+
+    def _metrics(self, metrics: dict) -> dict:
+        """Detached metrics, averaged over the data group."""
+        out = {k: v.detach().clone() for k, v in metrics.items()}
+        average_(list(out.values()), self.data_axis)
+        return out
 
     def _apply(self, opt, params, prefix):
         """Adam on ``params``' gradients, or on their running mean every
-        ``grad_accum``-th micro-step (optax.MultiSteps)."""
+        ``grad_accum``-th micro-step (optax.MultiSteps); the gradients are
+        averaged over the data group first, and those of the replicated
+        parameters over the model group too: each process of a model group
+        computes them alike, but cuDNN's atomics-reducing kernels make
+        them differ in the last bits, and the copies would drift apart."""
         k = self.cfg.grad_accum
         if k > 1:
             n = self.step % k
@@ -72,6 +114,10 @@ class _Accumulating:
                     p.grad = self.accum.pop(key)
             if n != k - 1:
                 return
+        params = [p for p in params if p.grad is not None]
+        average_([p.grad for p in params], self.data_axis)
+        average_([p.grad for p in params if p not in self.sharded_params],
+                 self.model_axis)
         opt.step()
 
 
@@ -151,8 +197,15 @@ class GauGANTrainer(_Accumulating):
     # ------------------------------------------------------------ helpers
 
     def _generate(self, source, eps=None, generator=None):
+        """``eps`` (or the draw from ``generator``) is the global batch's;
+        this process takes its rows."""
         mean, logvar = self.model.encoder(source)
-        z = self.model.latent(mean, logvar, eps, generator)
+        if (eps is None and generator is not None and self.variant == "gaugan"
+                and self.data_axis.group is not None):
+            eps = torch.randn((self._global(mean.shape[0]), mean.shape[1]),
+                              generator=generator, dtype=mean.dtype,
+                              device=mean.device)
+        z = self.model.latent(mean, logvar, self._rows(eps), generator)
         return self.model.generator(z, source), mean, logvar
 
     def _disc_loss(self, source, target, fake):
@@ -180,8 +233,11 @@ class GauGANTrainer(_Accumulating):
         out["cons_loss"] = m.consistency_loss_coeff * L.consistency_loss(
             fake, target, m.upscaling_factor)
         if self.variant == "gaugan":
-            out["kl_loss"] = m.kl_divergence_loss_coeff * L.kl_divergence_loss(
-                mean, logvar)
+            # A sum over the batch: this process's rows, times the data
+            # axis' size, average to the global batch's sum.
+            out["kl_loss"] = (m.kl_divergence_loss_coeff
+                              * L.kl_divergence_loss(mean, logvar)
+                              * self.data_axis.size)
         else:
             out["norm_loss"] = m.normal_loss_coeff * L.normal_loss(target, fake)
             out["grad_loss"] = m.gradient_loss_coeff * L.gradient_loss(
@@ -198,8 +254,9 @@ class GauGANTrainer(_Accumulating):
     def train_step(self, source, target, eps_d=None, eps_g=None,
                    generator=None):
         """One micro-step on NCHW float32 ``source`` [B, 2, I, I] and
-        ``target`` [B, 1, I, I].  Returns (metrics, fake): the JAX metric
-        keys, each a 0-d tensor, and the generator phase's fake."""
+        ``target`` [B, 1, I, I] (this process's rows).  Returns (metrics,
+        fake): the JAX metric keys, each a 0-d tensor (the global batch's),
+        and the generator phase's fake (this process's rows)."""
         metrics = {}
         if self.has_disc:
             with torch.no_grad():
@@ -224,7 +281,7 @@ class GauGANTrainer(_Accumulating):
         self.step += 1
         metrics[self._total_key()] = total.detach()
         metrics.update({k: v.detach() for k, v in parts.items()})
-        return metrics, fake.detach()
+        return self._metrics(metrics), fake.detach()
 
     @torch.no_grad()
     def val_step(self, source, target, eps=None, generator=None):
@@ -236,7 +293,7 @@ class GauGANTrainer(_Accumulating):
         parts = self._gen_losses(fake, mean, logvar, source, target)
         metrics[self._total_key()] = sum(parts.values())
         metrics.update(parts)
-        return metrics, fake
+        return self._metrics(metrics), fake
 
     @torch.no_grad()
     def forward(self, source, eps=None, generator=None):
@@ -284,6 +341,13 @@ class Pix2PixTrainer(_Accumulating):
         return self
 
     def _losses(self, source, target, train, masks, generator):
+        """``masks`` (or the draw from ``generator``) are the global
+        batch's; this process takes its rows."""
+        if train and self.data_axis.group is not None:
+            if masks is None:
+                masks = self.generator.draw_masks(
+                    source, generator, self._global(source.shape[0]))
+            masks = [self._rows(m) for m in masks]
         fake = self.generator(source, train, masks, generator)
         d_real = self.discriminator(source, target)
         d_fake = self.discriminator(source, fake)
@@ -308,12 +372,13 @@ class Pix2PixTrainer(_Accumulating):
         self._apply(self.gen_opt, gen_p, "g")
         self._apply(self.disc_opt, disc_p, "d")
         self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}, fake.detach()
+        return self._metrics(metrics), fake.detach()
 
     @torch.no_grad()
     def val_step(self, source, target, masks=None, generator=None):
         """The losses without updates, dropout on (pix2pix.py:163-169)."""
-        return self._losses(source, target, True, masks, generator)
+        metrics, fake = self._losses(source, target, True, masks, generator)
+        return self._metrics(metrics), fake
 
     @torch.no_grad()
     def forward(self, source):

@@ -9,6 +9,14 @@ trainer's two), both Adam states, the micro-step count and
 ``torch.Generator``.  ``save_params`` writes the weights alone (the loop's
 per-epoch models).  Orbax checkpoints are not read.
 
+In a multi-process run every process calls the savers: the tensor-parallel
+parameters, their Adam moments and ``grad_accum`` sums are gathered whole
+(``parallel.mesh.whole_state``), process 0 writes, and all wait at a
+barrier.  A checkpoint is then the same file for any mesh, as JAX's Orbax
+global arrays are, and ``epoch_N.pt`` serves through ``load_model_fn``.
+Every process restores, into a whole trainer, before it goes on the mesh
+(``shard_state_for_dp_tp`` slices what was restored).
+
 The Keras / TF SavedModel import (counterpart of checkpoint.py:60-320)
 turns the reference's own weights into the JAX parameter tree, as numpy:
 ``encoder_/generator_/discriminator_params_from_weights`` for the GauGAN
@@ -31,6 +39,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from moonsuperresolution_tpu_torch.parallel.distributed import (
+    barrier,
+    process_info,
+)
+from moonsuperresolution_tpu_torch.parallel.mesh import whole_state
+
 
 def _save(obj, path: str) -> None:
     """``torch.save`` to a temporary file renamed over ``path``: a run cut
@@ -41,23 +55,29 @@ def _save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _save_once(obj, path: str) -> None:
+    """Process 0 writes, then every process waits for it."""
+    if process_info()[0] == 0:
+        _save(obj, path)
+    barrier()
+
+
 def save_checkpoint(path: str, trainer, generator: torch.Generator | None
                     = None) -> None:
-    state = {"nets": trainer.nets.state_dict(),
-             "gen_opt": trainer.gen_opt.state_dict(),
-             "disc_opt": (trainer.disc_opt.state_dict()
-                          if trainer.disc_opt is not None else None),
-             "step": trainer.step,
-             "accum": dict(trainer.accum)}
+    state = dict(whole_state(trainer), step=trainer.step)
     if generator is not None:
         state["generator"] = generator.get_state()
-    _save(state, path)
+    _save_once(state, path)
 
 
 def restore_checkpoint(path: str, trainer, generator: torch.Generator | None
                        = None) -> int:
     """Loads the state of ``save_checkpoint`` into ``trainer`` (and
-    ``generator``) in place; returns the step."""
+    ``generator``) in place; returns the step.  The trainer must be whole:
+    restore before ``shard_state_for_dp_tp``."""
+    if trainer.mesh is not None:
+        raise ValueError("restore into the whole trainer, then put it on "
+                         "the mesh")
     state = torch.load(path, map_location="cpu", weights_only=True)
     trainer.nets.load_state_dict(state["nets"], strict=True)
     trainer.gen_opt.load_state_dict(state["gen_opt"])
@@ -70,8 +90,14 @@ def restore_checkpoint(path: str, trainer, generator: torch.Generator | None
     return trainer.step
 
 
-def save_params(path: str, module: nn.Module) -> None:
-    _save(module.state_dict(), path)
+def save_params(path: str, module) -> None:
+    """The weights of a module or of a trainer (whole, gathered from the
+    model group on a mesh) as a state dict; process 0 writes."""
+    if isinstance(module, nn.Module):
+        state = module.state_dict()
+    else:
+        state = whole_state(module)["nets"]
+    _save_once(state, path)
 
 
 def restore_params(path: str) -> dict:

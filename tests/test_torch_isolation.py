@@ -28,6 +28,8 @@ from moonsuperresolution_tpu_torch.infer.engine import (
     DEMSuperResolution,
     load_model_fn,
 )
+from moonsuperresolution_tpu_torch.parallel.distributed import initialize
+from moonsuperresolution_tpu_torch.parallel.mesh import make_mesh
 from moonsuperresolution_tpu_torch.train.loop import train
 
 torch.set_num_threads(2)
@@ -69,7 +71,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "utils.colorize", "ops.gradients", "cli.train",
                  "data.hdf5", "data.h5_builder", "data.wac_tiler",
                  "cli.make_h5", "cli.tile_wac", "cli.compare_maps",
-                 "models.pix2pix", "cli.convert_vgg"):
+                 "models.pix2pix", "cli.convert_vgg",
+                 "parallel.distributed", "parallel.mesh",
+                 "parallel.collectives", "utils.profiling"):
         assert f"moonsuperresolution_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -102,6 +106,11 @@ def _enter(entry, tmp_path, cpu):
             **CFG, source_folder_path=str(tmp_path)), **dev).process_map()
     if entry == "load_model_fn":
         return load_model_fn("", "gaugan", 64, **dev)
+    if entry == "make_mesh":
+        return make_mesh((1, 1), **dev)
+    if entry == "initialize":
+        # Refused before any rendezvous: the process's device comes first.
+        return initialize("localhost:1", 2, 1, **dev)
     return process_full_tiles.run([
         "--source_folder_path", str(tmp_path), "--map_name", "m",
         "--save_path", str(tmp_path), "--image_size", "64", "--stride", "16",
@@ -109,7 +118,8 @@ def _enter(entry, tmp_path, cpu):
 
 
 ENTRIES = ["engine", "process_map", "load_model_fn", "process_full_tiles",
-           "train", "cli.train", "cli.train pix2pix"]
+           "train", "cli.train", "cli.train pix2pix", "make_mesh",
+           "initialize"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -126,6 +136,7 @@ def test_cpu_only_when_asked(no_card, tmp_path):
     given (runs on the CPU: tests/test_torch_train_loop.py)."""
     assert _enter("engine", tmp_path, cpu=True).device.type == "cpu"
     assert _enter("load_model_fn", tmp_path, cpu=True) is None
+    assert _enter("make_mesh", tmp_path, cpu=True).device.type == "cpu"
     for entry in ("process_map", "process_full_tiles"):
         with pytest.raises(ValueError, match="not found"):
             _enter(entry, tmp_path, cpu=True)

@@ -338,10 +338,17 @@ def test_logging_without_tensorboardx_raises(tmp_path, monkeypatch):
                        "--output_path", str(tmp_path)])
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "2,1"], ["--distributed"]])
+@pytest.mark.parametrize("argv", [["--mesh", "2"], ["--mesh", "2,x"]])
 def test_cli_refuses_multi_device_flags(argv):
+    """The multi-device flags are taken (tests/test_torch_distributed*.py
+    run them); a mesh that is not DATA,MODEL is refused."""
     with pytest.raises(SystemExit):
         cli_train.parse(["--synthetic", *argv])
+    args = cli_train.parse(["--synthetic", "--mesh", "2,1", "--distributed",
+                            "--num_processes", "2", "--process_id", "1"])
+    assert (args.mesh, args.distributed, args.num_processes,
+            args.process_id) == ((2, 1), True, 2, 1)
+    assert cli_train.config(args).mesh_shape == (2, 1)
 
 
 def test_pix2pix_and_datasets_wait_for_later_slices(tmp_path):
