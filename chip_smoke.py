@@ -20,20 +20,30 @@ prints no result.  Phases; any failure exits non-zero:
      small width, in each epilogue mode (int32 sum, sum rounded to bf16, s8
      requantize), equal to its plain version bit for bit; each row keeps
      its time, its bound and its share of the bound; the yardstick is the
-     bf16 cuDNN conv of the same shape, which the port never calls.
+     bf16 cuDNN conv of the same shape, which the port never calls.  SPADE's
+     chain (csrc/spade.cu) at one chunk's 27 calls of the bf16 generator
+     (batch 16, the six blocks' shapes): ``spade_sums`` within 1e-5 (|mean|
+     + std) of its plain version's moments and 1e-4 of its variance, the
+     same bits on a second launch; ``spade_modulate`` equal to its plain
+     version bit for bit from the same moments; each timed per chunk beside
+     its plain version and the byte bound, the sums beside
+     ``F.batch_norm`` over the same tensors (the yardstick).
   3. The main path: full-width GauGAN in bf16 (seeded random weights)
      through ``pad_inputs``, ``generate_tile_list``, ``run_tiles_serial`` and
      the commits over a synthetic raster of two production tiles (image
      512, stride 64, tile 1024, batch 16) with nodata in it.  Every
      launch counter is set to 0 just before and read just after; a kernel
-     of the path that never launched fails the run.  Then an interior tile
-     (every patch valid) is timed, and profiled once: device time by kind
-     of kernel and the card's idle share.
+     of the path (the patch prep, SPADE's sums and modulation) that never
+     launched fails the run.  Then an interior tile (every patch valid) is
+     timed, counted (12 sums and 15 modulations a chunk: 408 and 510 a
+     tile), and profiled once: device time by kind of kernel and the
+     card's idle share.
      b. The same for the int8 generator quantized from the same weights
         (``quantize_model``), ``int8`` and ``int8_static`` (which calibrates
         once, on real patches of the first tile): the tile loop's coverage
         equals the bf16 loop's, 30 qconv launches per chunk (1,020 per
-        interior tile), and on 16 valid patches the int8 output is within a
+        interior tile) and no SPADE kernel (the int8 generator keeps its own
+        glue), and on 16 valid patches the int8 output is within a
         relative RMSE of 0.03 of the bf16 model's (the JAX engine's bound,
         tests/test_quant.py:153).
   4. The output checked: the main path's maps finite where covered and
@@ -59,10 +69,12 @@ prints no result.  Phases; any failure exits non-zero:
      e. the same weights with ``--quantize int8_static --streaming``: the
         checks of a, calibrated once, the coverage of a.
      Each map run is driven with the launch counters set to 0 and read
-     after; every kernel of its path must have launched.
+     after; every kernel of its path must have launched (the bf16 model's:
+     the patch prep and SPADE's two kernels).
 
-  6. Training (no kernel of csrc/ runs on this path; the launch counts
-     of the timed steps must stay 0):
+  6. Training (of csrc/ only SPADE's kernels run, in a bf16 GauGAN's
+     no-grad D-phase generator forward: 27 a step; every other count of
+     the timed steps must stay 0):
      a. spade_256 at full width (GauGAN, image 256, batch 16, default
         widths, float32 parameters) on the port's SyntheticSampler, in
         float32 compute (TF32 off) and in bf16: 2 warm-up steps, 5 timed
@@ -88,12 +100,13 @@ prints no result.  Phases; any failure exits non-zero:
         store, one epoch (4 steps, one validation batch); ms per step over
         steps 2-4 and the card's idle share there (profiled), beside phase
         6a's bf16 step on batches already on the card; every loss finite,
-        every network moved, no kernel launched;
+        every network moved, of csrc/ only SPADE's kernels launched;
      d. the epoch's ``epoch_0.pt`` served at image 256 (stride 32, tile
         1024, batch 16): by ``load_model_fn`` and ``DEMSuperResolution``
         over a synthetic raster of 2 tiles, and by the map CLI over phase
         5's map; maps finite where covered and no_value elsewhere, the patch
-        kernel launched in each (counters set to 0 before, read after);
+        and SPADE kernels launched in each (counters set to 0 before, read
+        after);
      e. ``compare_maps`` of the served mean map against itself (rmse 0)
         and against a copy 1 m higher (bias -1 within 1e-6).
 
@@ -110,7 +123,8 @@ prints no result.  Phases; any failure exits non-zero:
      d. full-width GauGAN weights in the Keras order and naming of the
         reference's SavedModels (from ``--seed``) through the port's
         importer and ``save_npz``, served by the map CLI in bf16 over
-        phase 5's map with the patch kernel counted; the same tree through
+        phase 5's map with the patch and SPADE kernels counted; the same
+        tree through
         ``load_params`` and the engine gives the same mean map bit for
         bit; a stream with two same-shape convs swapped is refused.
 
@@ -144,9 +158,10 @@ tracker, and anything a worker left behind (the script is their subreaper).
 A process it cannot stop fails the run.
 
 The line before the last is the kernels' JSON record (launches summed over
-phase 3's tile loops, every map run, phase 7d, phase 8d, and phase 9c's
-and 9d's); the last line is ``{"ok": true, "device": {...}}``.  ``--out
-FILE`` also writes the whole record (every qconv shape's row) to FILE.
+phase 3's tile loops, every map run, phases 6-7's training, phase 7d,
+phase 8d, and phase 9c's and 9d's); the last line is ``{"ok": true,
+"device": {...}}``.  ``--out FILE`` also writes the whole record (every
+qconv shape's row) to FILE.
 """
 
 from __future__ import annotations
@@ -524,6 +539,135 @@ def qconv_case(dev, seed):
                                  for _, b, s, c, n in launches) / 1e12)
 
 
+def generator_spade_calls(plan=FULL_PLAN, size=512, batch=16):
+    """The bf16 generator's fused SPADE calls in one forward, in order:
+    (wrapper, (B, C, H, W) of x, up).  Block i runs at size / 64 * 2^i:
+    the sums of its input (block 0: the dense output; then the previous
+    block's output before its upsample), spade_1 (reading that input,
+    upsampled after block 0), the sums of conv_1's output, spade_2 and,
+    when cin != ch, spade_3 (as spade_1)."""
+    out, cin = [], plan[0]
+    for i, ch in enumerate(plan):
+        s = size // 64 * 2 ** i
+        up = i > 0
+        x_in = (batch, cin, s // 2, s // 2) if up else (batch, cin, s, s)
+        out += [(SPADE_SUMS, x_in, False), (SPADE_MOD, x_in, up),
+                (SPADE_SUMS, (batch, ch, s, s), False),
+                (SPADE_MOD, (batch, ch, s, s), False)]
+        if cin != ch:
+            out.append((SPADE_MOD, x_in, up))
+        cin = ch
+    return out
+
+
+def spade_bound(calls):
+    """(bound ms, what bounds it) of a list of SPADE calls: each input read
+    once and each output written once at the memory rate (bf16 x, gb and
+    out; float32 sums, mean and r), against 3 float operations per value
+    summed and 8 per value modulated at the float32 peak."""
+    moved = ops = 0
+    for name, (b, c, h, w), up in calls:
+        n = b * c * h * w
+        if name == SPADE_SUMS:
+            moved += 2 * n + 2 * 4 * c
+            ops += 3 * n
+        else:
+            out = 4 * n if up else n
+            moved += 2 * n + 2 * 2 * out + 2 * out + 2 * 4 * c
+            ops += 8 * out
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations", moved
+
+
+def spade_case(dev, seed):
+    """SPADE's chain (csrc/spade.cu) at one chunk's 27 calls at full width
+    (batch 16, image 512): ``spade_sums`` against its plain version
+    (moments within 1e-5 (|mean| + std), variance within 1e-4 of itself,
+    the same bits on a second launch) and ``spade_modulate`` equal to its
+    plain version bit for bit from the same moments.  Timed per chunk:
+    each wrapper's calls, their plain versions, and, as the yardstick of
+    the normalising half, ``F.batch_norm(x, None, None, training=True)``
+    on the tensors whose moments the chunk takes (one PyTorch call for the
+    same moments and a normalised tensor; the port never calls it).
+    Returns the two wrappers' records."""
+    import torch
+    import torch.nn.functional as F
+
+    from moonsuperresolution_tpu_torch.ops import spade as sp
+
+    calls = generator_spade_calls()
+    check(len(calls) == 27, f"{len(calls)} SPADE calls per chunk")
+    gen = torch.Generator(dev).manual_seed(seed)
+    args, err = {SPADE_SUMS: [], SPADE_MOD: []}, {SPADE_SUMS: 0.0,
+                                                  SPADE_MOD: 0.0}
+    for name, shape, up in calls:
+        b, c, h, w = shape
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(
+            torch.bfloat16)
+        n = b * h * w
+        got = sp.moments_from_sums(*sp.spade_sums(x, "batch"), n)
+        again = sp.spade_sums(x, "batch")
+        torch.cuda.synchronize()
+        want = sp.moments_from_sums(*sp.spade_sums_plain(x, "batch"), n)
+        check(all(torch.equal(u, v) for u, v in
+                  zip(sp.spade_sums(x, "batch"), again)),
+              f"spade_sums {shape}: two launches differ")
+        (gm, gv), (wm, wv) = got, want
+        check(bool(((gm - wm).abs() <= 1e-5 * (wm.abs() + wv.sqrt())).all()
+                   and ((gv - wv).abs() <= 1e-4 * wv).all()),
+              f"spade_sums {shape}: moments beyond 1e-5 / 1e-4")
+        err[SPADE_SUMS] = max(err[SPADE_SUMS], float((gm - wm).abs().max()),
+                              float((gv - wv).abs().max()))
+        if name == SPADE_SUMS:
+            args[SPADE_SUMS].append((x, "batch"))
+            continue
+        k = 2 if up else 1
+        gb = torch.randn((b, 2 * c, k * h, k * w), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        r = sp.inv_std(wv)
+        a = (x, gb, wm, r, 0.2, up)
+        out = sp.spade_modulate(*a)
+        torch.cuda.synchronize()
+        ref = sp.spade_modulate_plain(*a)
+        e = float((out.float() - ref.float()).abs().max())
+        check(torch.equal(out.view(torch.int16), ref.view(torch.int16)),
+              f"spade_modulate {shape} up={up}: not bit for bit ({e})")
+        err[SPADE_MOD] = max(err[SPADE_MOD], e)
+        args[SPADE_MOD].append(a)
+        del out, ref
+
+    def run(fn, key):
+        return lambda: [fn(*a) for a in args[key]]
+
+    bn = [x for x, _ in args[SPADE_SUMS]]
+    records = []
+    for key, wrapper, plain in (
+            (SPADE_SUMS, sp.spade_sums, sp.spade_sums_plain),
+            (SPADE_MOD, sp.spade_modulate, sp.spade_modulate_plain)):
+        bound, by, moved = spade_bound([c for c in calls if c[0] == key])
+        records.append(dict(
+            name=key, route="cuda",
+            source="moonsuperresolution_tpu_torch/csrc/spade.cu",
+            # The JAX SPADE's moments and modulation, left to XLA.
+            replaces="moonsuperresolution_tpu/models/layers.py:198",
+            wrapper=wrapper, max_abs_err=err[key],
+            ms=cuda_ms(run(wrapper, key), reps=20),
+            plain_ms=cuda_ms(run(plain, key), reps=5, warmup=1),
+            bound_ms=bound, bound_by=by, chunk_gb=moved / 1e9,
+            calls_per_chunk=len(args[key]),
+            # F.batch_norm over the same tensors: moments and a normalised
+            # tensor in one call, a yardstick for the sums; no PyTorch call
+            # normalises, modulates and applies LeakyReLU.
+            library_ms=(cuda_ms(lambda: [F.batch_norm(
+                x, None, None, training=True, eps=1e-5) for x in bn],
+                reps=20) if key == SPADE_SUMS else None)))
+    del args, bn
+    torch.cuda.empty_cache()
+    return records
+
+
 def counted_run(kernels, fn, need, what):
     """``fn()`` with every launch counter set to 0 just before; each
     kernel's launches in it are added to its total, and each kernel named
@@ -540,6 +684,14 @@ def counted_run(kernels, fn, need, what):
 
 
 PATCHES, QCONV = "extract_normalize_patches", "qconv3x3_s8"
+SPADE_SUMS, SPADE_MOD = "spade_sums", "spade_modulate"
+SPADE = (SPADE_SUMS, SPADE_MOD)
+
+
+def spade_per_forward(plan):
+    """{wrapper: calls} of one bf16 generator forward on the fused path."""
+    calls = [name for name, _, _ in generator_spade_calls(plan)]
+    return {k: calls.count(k) for k in SPADE}
 
 
 # ----------------------------------------------------------------- phase 3
@@ -653,7 +805,7 @@ def main_path(dev, seed, kernels):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     (tiles, (mean, std, good)), _ = counted_run(
-        kernels, lambda: run_map(eng, img, dem), [PATCHES],
+        kernels, lambda: run_map(eng, img, dem), [PATCHES, *SPADE],
         "the bf16 tile loop")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -677,6 +829,7 @@ def main_path(dev, seed, kernels):
 
 
 KERNEL_KINDS = (  # (category, substrings of the CUDA kernel's name)
+    ("SPADE chain (csrc/spade.cu)", ("spade_sums", "spade_modulate")),
     ("int8 conv (csrc/qconv.cu)", ("qconv3x3",)),
     ("optimizer (Adam)", ("multi_tensor_apply", "adam")),
     # cuDNN's FFT convolutions: fft kernels and the complex products.
@@ -731,7 +884,7 @@ def device_summary(prof, what):
     print(f"[profile] {what}, top device kernels (ms, calls, kind):",
           file=sys.stderr)
     for ms, count, kind, key in sorted(rows, reverse=True)[:20]:
-        print(f"[profile] {ms:10.3f} {count:6d}  {kind:28s} {key[:110]}",
+        print(f"[profile] {ms:10.3f} {count:6d}  {kind:28s} {key[:240]}",
               file=sys.stderr)
     by_kind = dict(sorted(by_kind.items(), key=lambda kv: -kv[1]))
     return by_kind, sum(by_kind.values()), sum(r[1] for r in rows)
@@ -845,7 +998,8 @@ def int8_paths(dev, seed, model, kernels, img, dem, bf16_good, fpp):
         st = full_tile(eng, fpp, seed, kernels)
         per_tile = st["full_tile_launches"]
         check(per_tile[QCONV] == 30 * -(-g.grid ** 2 // PROD["batch_size"])
-              and per_tile[PATCHES] == 1,
+              and per_tile[PATCHES] == 1
+              and per_tile[SPADE_SUMS] == per_tile[SPADE_MOD] == 0,
               f"{mode}: launches per interior tile {per_tile}")
         with torch.inference_mode():
             out = qmodel(src16,
@@ -1168,7 +1322,8 @@ def full_map(dev, model, kernels, seed, td):
     model_argv = geom + ["--map_name", "map", "--model_path", npz,
                          "--model_kind", "gaugan"]
     res, launches["model in RAM"] = run_cli(
-        kernels, cli, model_argv + ["--save_path", out], "bf16 model")
+        kernels, cli, model_argv + ["--save_path", out], "bf16 model",
+        (PATCHES, *SPADE))
     torch.cuda.synchronize()
     stats.update({f"map_{k}": v for k, v in res.items()})
     stats["map_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1286,12 +1441,27 @@ def train_full_width(dev, seed, kernels, compute_dtype):
     return out
 
 
+def fused_generation(tr):
+    """Whether a trainer's no-grad generator forwards (the D phase,
+    validation) take the fused SPADE path: a GauGAN-family generator in
+    bf16 with a discriminator."""
+    import torch
+
+    from moonsuperresolution_tpu_torch.models.networks import SpadeGenerator
+
+    gen = tr.nets["generator"]
+    return (isinstance(gen, SpadeGenerator) and gen.dtype == torch.bfloat16
+            and getattr(tr, "has_disc", False)
+            and gen.resblock_0.model_axis.group is None)
+
+
 def timed_training(dev, seed, kernels, tr, batches, what):
     """A trainer's steps on two batches already on the card: 2 warm-up
     steps, 5 timed steps to a host readback of their losses, model FLOPs of
     one step (``FlopCounterMode``), one step profiled.  Fails unless every
     loss is finite and every network moved; counts launches of the kernels
-    (none may launch on the training paths)."""
+    (only the SPADE kernels, in a bf16 GauGAN's D-phase generator forward,
+    launch on the training paths)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -1313,8 +1483,12 @@ def timed_training(dev, seed, kernels, tr, batches, what):
     t0 = time.perf_counter()
     losses, launches = counted_run(kernels, timed, [], "training")
     dt = (time.perf_counter() - t0) / TRAIN_TIMED
-    check(not any(launches.values()),
-          f"training launched a TPU-kernel port: {launches}")
+    want = {k: 0 for k in launches}
+    if fused_generation(tr):     # the D phase's generator forward, no grad
+        want.update({k: n * TRAIN_TIMED for k, n in spade_per_forward(
+            tr.nets["generator"].channel_plan).items()})
+    check(launches == want, f"{what} training launched {launches}, not "
+          f"{want}")
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(np.isfinite(v) for o in losses for v in o.values()),
           f"{what} training: a loss is not finite: {losses[-1]}")
@@ -1691,8 +1865,10 @@ def train_from_store(dev, seed, kernels, store, td):
     starts = clock["starts"]
     check(tr.step == len(starts) == STORE_TRAIN // cfg.batch_size,
           f"store training: {tr.step} steps, {len(starts)} clocked")
-    check(not any(launches.values()),
-          f"store training launched a TPU-kernel port: {launches}")
+    check(launches[PATCHES] == launches[QCONV] == 0
+          and all(launches[k] > 0 for k in SPADE),
+          f"store training launched {launches}: the SPADE kernels only, "
+          f"in the no-grad generator forwards")
     check(len(history) == 1 and all(
         np.isfinite(v) for part in ("train", "val")
         for v in history[0][part].values()),
@@ -1742,7 +1918,7 @@ def serve_trained(dev, seed, kernels, weights, td):
                                 seed + 2)
     t0 = time.perf_counter()
     (tiles, (mean, std, good)), engine_launches = counted_run(
-        kernels, lambda: run_map(eng, img, dem), [PATCHES],
+        kernels, lambda: run_map(eng, img, dem), [PATCHES, *SPADE],
         "the trained model's tile loop")
     torch.cuda.synchronize()
     tiles_s = time.perf_counter() - t0
@@ -1757,7 +1933,8 @@ def serve_trained(dev, seed, kernels, weights, td):
             out, "--model_path", weights]
     for k, v in geom.items():
         argv += [f"--{k}", str(v)]
-    res, cli_launches = run_cli(kernels, cli, argv, "trained model")
+    res, cli_launches = run_cli(kernels, cli, argv, "trained model",
+                                (PATCHES, *SPADE))
     m = read_triple(out, "map")
     check_map(m, res, stays, filled, "trained model map")
     torch.cuda.empty_cache()
@@ -2012,7 +2189,8 @@ def serve_imported(dev, seed, kernels):
                 "--save_path", out, "--model_path", npz]
         for k, v in geom.items():
             argv += [f"--{k}", str(v)]
-        res, cli_launches = run_cli(kernels, cli, argv, "imported weights")
+        res, cli_launches = run_cli(kernels, cli, argv, "imported weights",
+                                    (PATCHES, *SPADE))
         check(cli_launches[PATCHES] >= res["tiles"],
               f"imported weights: {cli_launches[PATCHES]} patch kernel "
               f"launches for {res['tiles']} tiles")
@@ -2029,7 +2207,7 @@ def serve_imported(dev, seed, kernels):
             no_value=NO_VALUE, compute_dtype="bfloat16", **geom),
             model=model, device=dev)
         res_direct, direct_launches = counted_run(
-            kernels, eng.process_map, [PATCHES],
+            kernels, eng.process_map, [PATCHES, *SPADE],
             "the imported tree served by the engine")
         d = read_triple(direct, "map")
         check(np.array_equal(d["mean"], m["mean"])
@@ -2389,7 +2567,7 @@ def tile_parallel(dev, seed, kernels, model, img, dem, prof_dir):
                     if how == "tile-parallel" else None)
             eng = DEMSuperResolution(DSRConfig(seed=seed, **PROD), model=m,
                                      device=dev, mesh=mesh)
-            need = [PATCHES] + ([QCONV] if mode != "bf16" else [])
+            need = [PATCHES] + ([QCONV] if mode != "bf16" else list(SPADE))
             prof = prof_dir if (mode, how) == ("bf16", "serial") else None
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2558,16 +2736,25 @@ def main(argv=None):
         qconv_ptxas = build_all()
 
         phase = "2 kernels vs plain"
-        kernels = [patches_case(dev, args.seed), qconv_case(dev, args.seed)]
+        kernels = [patches_case(dev, args.seed), qconv_case(dev, args.seed),
+                   *spade_case(dev, args.seed)]
         for k in kernels:
             k["launches"] = 0
+            lib = k["library_ms"]
             print(f"[kernel] {k['name']}: {k['ms']:.4f} ms, plain "
                   f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-                  f"({k['bound_by']}), max abs err {k['max_abs_err']:.3g}")
+                  f"({k['bound_by']}), library "
+                  f"{'-' if lib is None else f'{lib:.4f} ms'}, max abs err "
+                  f"{k['max_abs_err']:.3g}")
 
         phase = "3 main path"
         eng, model, img, dem, good, stats = main_path(dev, args.seed,
                                                       kernels)
+        stats["spade_chunk"] = {k["name"]: {
+            key: k[key] for key in ("ms", "plain_ms", "bound_ms",
+                                    "library_ms", "chunk_gb",
+                                    "calls_per_chunk")}
+            for k in kernels if k["name"] in SPADE}
         print(f"[main path] full-width bf16 GauGAN, {stats['params']} "
               f"params: {stats['tiles']} tiles in {stats['tiles_s']:.3f} s "
               f"= {stats['tile_s']:.3f} s/tile, "
@@ -2581,10 +2768,16 @@ def main(argv=None):
 
         fpp = stats["model_gflop_per_patch"] * 1e9
         stats.update(full_tile(eng, fpp, args.seed, kernels))
+        chunks = -(-eng.geom.grid ** 2 // PROD["batch_size"])
+        want = {k: n * chunks for k, n in spade_per_forward(FULL_PLAN).items()}
+        got = {k: stats["full_tile_launches"][k] for k in SPADE}
+        check(got == want, f"SPADE launches per interior tile {got}, not "
+              f"{want}")
         print(f"[full tile] all patches valid: {stats['full_tile_s']:.3f} s "
               f"= {stats['full_tile_patches_per_s']:.2f} patches/s, model at "
               f"{stats['full_tile_model_tflop_per_s']:.1f} TFLOP/s; card "
-              f"idle {100 * stats['device_idle_share']:.1f} % of the tile")
+              f"idle {100 * stats['device_idle_share']:.1f} % of the tile; "
+              f"SPADE launches per tile {got}")
         print("[full tile] device ms by kind: " + ", ".join(
             f"{k} {v:.1f}" for k, v in stats["device_ms_by_kind"].items()))
         del eng

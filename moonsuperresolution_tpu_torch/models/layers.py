@@ -40,17 +40,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from moonsuperresolution_tpu_torch.ops import spade as spade_ops
 from moonsuperresolution_tpu_torch.ops.resize import resize_nearest
+from moonsuperresolution_tpu_torch.ops.spade import SPADE_EPSILON, inv_std
 from moonsuperresolution_tpu_torch.parallel.collectives import (
     ONE,
     Axis,
-    all_reduce_sum,
     copy_to_model,
     gather_from_model,
     reduce_from_model,
 )
-
-SPADE_EPSILON = 1e-5
 
 
 def glorot_uniform_(w: torch.Tensor, generator=None) -> torch.Tensor:
@@ -174,12 +173,7 @@ def spade_moments(xs: torch.Tensor, stats: str = "batch",
     n = math.prod(xs.shape[d] for d in dims)
     s1 = xs.sum(dims, keepdim=True, dtype=torch.float32)
     s2 = (xs * xs).sum(dims, keepdim=True, dtype=torch.float32)
-    if stats == "batch" and data_axis.group is not None:
-        s1, s2 = all_reduce_sum(torch.cat([s1, s2]), data_axis).chunk(2)
-        n *= data_axis.size
-    mean = s1 / n
-    var = torch.clamp(s2 / n - mean * mean, min=0.0)
-    return mean, var
+    return spade_ops.moments_from_sums(s1, s2, n, stats, data_axis)
 
 
 def spade_moments_centered(x: torch.Tensor, stats: str = "batch"):
@@ -201,7 +195,7 @@ def spade_normalize(x: torch.Tensor, stats: str, stats_dtype,
                     data_axis: Axis = ONE) -> torch.Tensor:
     xs = x.to(stats_dtype)
     mean, var = spade_moments(xs, stats, data_axis)
-    return (xs - mean) * (1.0 / torch.sqrt(var + SPADE_EPSILON))
+    return (xs - mean) * inv_std(var)
 
 
 class SPADE(nn.Module):
@@ -218,6 +212,10 @@ class SPADE(nn.Module):
     slice of gamma and beta, from its slice of their (replicated) weights;
     the gradients of the replicated weights and of the shared conv's
     output are summed over the model group.
+
+    ``modulate`` is the fused path's SPADE (``SpadeResidualBlock.fused``):
+    the block's LeakyReLU of the layer's output, from an input whose
+    moments were taken already, in one kernel (ops/spade.py).
     """
 
     def __init__(self, filters: int, hidden: int = 128, stats: str = "batch",
@@ -233,7 +231,24 @@ class SPADE(nn.Module):
         self.conv_beta = Conv(hidden, filters, 3, dtype=dtype)
 
     def forward(self, x, mask, normalized=None, model_axis: Axis = ONE):
-        mask = resize_nearest(mask, (x.shape[2], x.shape[3]))
+        gb = self._gamma_beta(mask, (x.shape[2], x.shape[3]), model_axis)
+        c = gb.shape[1] // 2
+        gamma, beta = gb[:, :c], gb[:, c:]
+        if normalized is None:
+            normalized = spade_normalize(x, self.stats, self.stats_dtype,
+                                         self.data_axis)
+        return gamma * normalized.to(self.dtype) + beta
+
+    def modulate(self, src: spade_ops.Normed, mask, alpha: float):
+        """``leaky_relu(forward(...), alpha)`` of the input ``src``."""
+        gb = self._gamma_beta(mask, src.hw)
+        return spade_ops.spade_modulate(src.x, gb, src.mean, src.r, alpha,
+                                        src.up)
+
+    def _gamma_beta(self, mask, hw, model_axis: Axis = ONE):
+        """The gamma/beta conv's output [B, 2C, H, W] at the feature
+        resolution ``hw``: gamma its first C channels, beta the rest."""
+        mask = resize_nearest(mask, hw)
         h = F.relu(self.conv(mask))
         params = (self.conv_gamma.weight, self.conv_beta.weight,
                   self.conv_gamma.bias, self.conv_beta.bias)
@@ -242,14 +257,8 @@ class SPADE(nn.Module):
             h = copy_to_model(h, model_axis)
             params = [copy_to_model(t, model_axis)[sl] for t in params]
         wg, wb, bg, bb = params
-        c = wg.shape[0]
-        gb = F.conv2d(h, torch.cat([wg, wb]).to(self.dtype),
-                      torch.cat([bg, bb]).to(self.dtype), padding=1)
-        gamma, beta = gb[:, :c], gb[:, c:]
-        if normalized is None:
-            normalized = spade_normalize(x, self.stats, self.stats_dtype,
-                                         self.data_axis)
-        return gamma * normalized.to(self.dtype) + beta
+        return F.conv2d(h, torch.cat([wg, wb]).to(self.dtype),
+                        torch.cat([bg, bb]).to(self.dtype), padding=1)
 
 
 class SpadeResidualBlock(nn.Module):
@@ -257,7 +266,16 @@ class SpadeResidualBlock(nn.Module):
     SPADE -> LeakyReLU -> 3x3 conv passes, with a learned SPADE skip when the
     channel count changes.  spade_1 and spade_3 both normalise the block
     input and share one normalised tensor (``input_normalized``).  With
-    ``model_axis`` set the block is tensor-parallel (module docstring)."""
+    ``model_axis`` set the block is tensor-parallel (module docstring).
+
+    Where ``fused()`` holds (autograd off, bf16 compute with float32
+    statistics, not tensor-parallel: serving, and training's no-grad
+    generation) each SPADE and its LeakyReLU is one ``spade_modulate`` and
+    each set of moments one ``spade_sums`` (ops/spade.py), the block
+    input's taken once for spade_1 and spade_3.  The generator then hands
+    over the input as a ``Normed`` (``normed=``): the previous block's
+    output before its upsample, with its moments; ``x``, the upsampled
+    input, is needed only for the residual of a block without a skip."""
 
     def __init__(self, in_filters: int, filters: int, alpha: float = 0.2,
                  stats: str = "batch", dtype=torch.float32,
@@ -280,7 +298,15 @@ class SpadeResidualBlock(nn.Module):
         else:
             self.spade_3 = self.conv_3 = None
 
-    def forward(self, x, mask, input_normalized=None):
+    def fused(self) -> bool:
+        return (not torch.is_grad_enabled()
+                and self.dtype == torch.bfloat16
+                and self.stats_dtype == torch.float32
+                and self.model_axis.group is None)
+
+    def forward(self, x, mask, input_normalized=None, normed=None):
+        if self.fused():
+            return self._forward_fused(x, mask, normed)
         if input_normalized is None:
             input_normalized = spade_normalize(x, self.stats, self.stats_dtype,
                                                self.data_axis)
@@ -295,6 +321,19 @@ class SpadeResidualBlock(nn.Module):
             return x + h
         skip = self.spade_3(x, mask, normalized=input_normalized)
         return self.conv_3(F.leaky_relu(skip, a)) + h
+
+    def _forward_fused(self, x, mask, src):
+        if x is not None:
+            x = x.contiguous()
+        if src is None:
+            src = spade_ops.normed(x, self.stats, self.data_axis)
+        a = self.alpha
+        h = self.conv_1(self.spade_1.modulate(src, mask, a))
+        h = self.conv_2(self.spade_2.modulate(
+            spade_ops.normed(h, self.stats, self.spade_2.data_axis), mask, a))
+        if self.spade_3 is None:
+            return x + h
+        return self.conv_3(self.spade_3.modulate(src, mask, a)) + h
 
     def _column(self, conv: Conv, x):
         """Column-parallel: whole input, this process's out-channel slice of

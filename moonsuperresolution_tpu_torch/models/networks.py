@@ -29,6 +29,7 @@ from moonsuperresolution_tpu_torch.models.layers import (
     conv_same,
     spade_normalize,
 )
+from moonsuperresolution_tpu_torch.ops import spade as spade_ops
 from moonsuperresolution_tpu_torch.parallel.collectives import (
     ONE,
     copy_to_model,
@@ -119,8 +120,12 @@ class SpadeGenerator(nn.Module):
     The SPADE moments and normalised input of each block after the first
     are computed before the upsample (a 2x nearest upsample repeats every
     element 4 times, so they are the same), cast to the compute dtype and
-    upsampled.  With ``subpixel_head`` the last upsample and the head run
-    as a subpixel conv at pre-upsample resolution.
+    upsampled.  Where the next block takes the fused path
+    (``SpadeResidualBlock.fused``) only the moments are taken: the block
+    reads the pre-upsample output through its kernels, and the output is
+    upsampled only if that block has no learned skip (its residual needs
+    it).  With ``subpixel_head`` the last upsample and the head run as a
+    subpixel conv at pre-upsample resolution.
 
     Multi-process (parallel/mesh.py): ``data_axis`` makes the moments of
     the between-block normalisation the global batch's; ``model_axis``
@@ -159,16 +164,27 @@ class SpadeGenerator(nn.Module):
         c0 = self.channel_plan[0]
         x = self._dense(latent)
         x = x.view(-1, self.sw, self.sw, c0).permute(0, 3, 1, 2)
-        x_hat_up = None
-        n_blocks = len(self.channel_plan)
-        for i in range(n_blocks):
-            x = getattr(self, f"resblock_{i}")(x, source,
-                                               input_normalized=x_hat_up)
-            if i + 1 == n_blocks and self.subpixel_head:
+        blocks = [getattr(self, f"resblock_{i}")
+                  for i in range(len(self.channel_plan))]
+        x_hat_up = normed = None
+        for block, following in zip(blocks, blocks[1:] + [None]):
+            x = block(x, source, input_normalized=x_hat_up, normed=normed)
+            if following is None:
                 break
+            x_hat_up = normed = None
+            if following.fused():
+                # The next block reads x upsampled inside its kernels; x
+                # itself is upsampled only for a residual without skip.
+                normed = spade_ops.normed(x.contiguous(), self.stats,
+                                          self.data_axis, up=True)
+                x = None if following.spade_3 is not None \
+                    else upsample2x_nearest(x)
+                continue
             x_hat = spade_normalize(x, self.stats, self.stats_dtype,
                                     self.data_axis)
             x_hat_up = upsample2x_nearest(x_hat.to(self.dtype))
+            x = upsample2x_nearest(x)
+        if not self.subpixel_head:
             x = upsample2x_nearest(x)
         x = F.leaky_relu(x, 0.2)
         w, b = self.head.weight.to(self.dtype), self.head.bias.to(self.dtype)

@@ -9,7 +9,11 @@ versions, which the CPU runs, against numpy loops.
 Patch prep: validity must match exactly; the rest to 1e-6 (IEEE float32
 division on both sides).  The int8 conv: equal bit for bit, kernel and plain
 version alike (an exact integer sum, then the same float32 roundings in the
-same order).
+same order).  SPADE's chain: ``spade_modulate`` equal bit for bit given the
+same moments (the same roundings in the same order); ``spade_sums`` in
+another order than torch's, so the moments within 1e-5 (|mean| + std) and
+the variance within 1e-4 of itself, and the same bits from launch to
+launch.
 """
 
 import numpy as np
@@ -18,6 +22,7 @@ import torch
 
 from moonsuperresolution_tpu_torch.ops import patches as tp
 from moonsuperresolution_tpu_torch.ops import qconv as qc
+from moonsuperresolution_tpu_torch.ops import spade as sp
 
 torch.set_num_threads(2)
 
@@ -303,3 +308,89 @@ def test_qconv_kernel_refuses_what_it_does_not_take(cuda, rng):
     args[1] = args[1].cpu()
     with pytest.raises(ValueError, match="one device"):
         qc.qconv(*args[:5], torch.int32, torch.float32)
+
+
+# ------------------------------------------------------------ SPADE's chain
+
+# (B, C, H, W) of the sums at the main path's blocks 3-5 (batch 16, image
+# 512): block 3's input before its upsample, then the spade_2 inputs of
+# blocks 3-5 (the last two also blocks 4-5's inputs); then ragged shapes
+# (H*W % 8 != 0 takes the scalar path).
+SPADE_SUM_SHAPES = [(16, 1024, 32, 32), (16, 512, 64, 64),
+                    (16, 256, 128, 128), (16, 128, 256, 256), (3, 5, 7, 9),
+                    (2, 3, 13, 11)]
+# (B, C, H, W) of the output, up: spade_1 of blocks 0, 3 and 5 at batch 16,
+# spade_2 of block 4; ragged ones on the scalar path.
+SPADE_MOD_SHAPES = [((16, 1024, 8, 8), False), ((16, 1024, 64, 64), True),
+                    ((16, 256, 256, 256), True), ((16, 256, 128, 128), False),
+                    ((3, 5, 6, 10), False), ((2, 3, 10, 14), True),
+                    ((2, 4, 8, 16), True)]
+
+
+def _spade_input(gen, shape, scale, shift, dev):
+    return (torch.randn(shape, generator=gen, device=dev) * scale
+            + shift).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stats", ["batch", "instance"])
+@pytest.mark.parametrize("shape", SPADE_SUM_SHAPES, ids=str)
+def test_spade_sums_kernel_matches_plain(cuda, shape, stats):
+    gen = torch.Generator(cuda).manual_seed(sum(shape))
+    x = _spade_input(gen, shape, 1.5, 0.7, cuda)
+    n = shape[2] * shape[3] * (shape[0] if stats == "batch" else 1)
+    before = sp.spade_sums.launches
+    got = sp.moments_from_sums(*sp.spade_sums(x, stats), n, stats)
+    torch.cuda.synchronize()
+    assert sp.spade_sums.launches == before + 1
+    want = sp.moments_from_sums(*sp.spade_sums_plain(x, stats), n, stats)
+    (gm, gv), (wm, wv) = got, want
+    assert gm.shape == wm.shape and gv.shape == wv.shape
+    std = wv.sqrt()
+    assert ((gm - wm).abs() <= 1e-5 * (wm.abs() + std)).all()
+    assert ((gv - wv).abs() <= 1e-4 * wv).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stats", ["batch", "instance"])
+@pytest.mark.parametrize("shape", [(16, 128, 256, 256), (3, 5, 7, 9)],
+                         ids=str)
+def test_spade_sums_kernel_is_deterministic(cuda, shape, stats):
+    x = _spade_input(torch.Generator(cuda).manual_seed(1), shape, 2.0, -0.3, cuda)
+    a = sp.spade_sums(x, stats)
+    b = sp.spade_sums(x, stats)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stats", ["batch", "instance"])
+@pytest.mark.parametrize("shape,up", SPADE_MOD_SHAPES, ids=str)
+def test_spade_modulate_kernel_equals_plain(cuda, shape, up, stats):
+    b, c, h, w = shape
+    gen = torch.Generator(cuda).manual_seed(b * c + h)
+    x = _spade_input(gen, (b, c, h // 2, w // 2) if up else shape, 2.0, 0.4, cuda)
+    gb = _spade_input(gen, (b, 2 * c, h, w), 1.0, 0.0, cuda)
+    s = sp.normed(x, stats)
+    before = sp.spade_modulate.launches
+    got = sp.spade_modulate(x, gb, s.mean, s.r, 0.2, up)
+    torch.cuda.synchronize()
+    assert sp.spade_modulate.launches == before + 1
+    want = sp.spade_modulate_plain(x, gb, s.mean, s.r, 0.2, up)
+    assert got.shape == want.shape == shape and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    again = sp.spade_modulate(x, gb, s.mean, s.r, 0.2, up)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_spade_kernels_refuse_what_they_do_not_take(cuda):
+    """A CUDA tensor goes through the kernels or the call raises: a
+    channels-last tensor, or tensors on two devices."""
+    x = torch.zeros((2, 8, 8, 8), device=cuda, dtype=torch.bfloat16)
+    gb = torch.zeros((2, 16, 8, 8), device=cuda, dtype=torch.bfloat16)
+    m = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.spade_sums(x.contiguous(memory_format=torch.channels_last),
+                      "batch")
+    with pytest.raises(ValueError, match="devices"):
+        sp.spade_modulate(x, gb, m.cpu(), m, 0.2)
