@@ -21,23 +21,29 @@ prints no result.  Phases; any failure exits non-zero:
      requantize), equal to its plain version bit for bit; each row keeps
      its time, its bound and its share of the bound; the yardstick is the
      bf16 cuDNN conv of the same shape, which the port never calls.  SPADE's
-     chain (csrc/spade.cu) at one chunk's 27 calls of the bf16 generator
-     (batch 16, the six blocks' shapes): ``spade_sums`` within 1e-5 (|mean|
-     + std) of its plain version's moments and 1e-4 of its variance, the
-     same bits on a second launch; ``spade_modulate`` equal to its plain
-     version bit for bit from the same moments; each timed per chunk beside
-     its plain version and the byte bound, the sums beside
-     ``F.batch_norm`` over the same tensors (the yardstick).
+     chain (csrc/spade.cu) at one chunk's 33 calls of the bf16 generator
+     (batch 16, the six blocks' shapes, with the conv biases they fold),
+     in channels_last (served) and NCHW (training's no-grad generation):
+     ``spade_sums`` within 1e-5 (|mean| + std) of its plain version's
+     moments and 1e-4 of its variance, the same bits on a second launch;
+     ``spade_modulate`` and ``spade_residual`` equal to their plain
+     versions bit for bit (the modulation from the same moments); each
+     timed per chunk in channels_last beside its plain version and the
+     byte bound, the sums beside ``F.batch_norm`` over the same tensors and
+     the residual beside ``torch.add`` of its two tensors (the yardsticks).
   3. The main path: full-width GauGAN in bf16 (seeded random weights)
      through ``pad_inputs``, ``generate_tile_list``, ``run_tiles_serial`` and
      the commits over a synthetic raster of two production tiles (image
      512, stride 64, tile 1024, batch 16) with nodata in it.  Every
      launch counter is set to 0 just before and read just after; a kernel
-     of the path (the patch prep, SPADE's sums and modulation) that never
-     launched fails the run.  Then an interior tile (every patch valid) is
-     timed, counted (12 sums and 15 modulations a chunk: 408 and 510 a
-     tile), and profiled once: device time by kind of kernel and the
-     card's idle share.
+     of the path (the patch prep, SPADE's sums, modulation and residual)
+     that never launched fails the run.  The engine serves the model
+     channels_last (its conv weights are checked).  Then an interior tile
+     (every patch valid) is timed, counted (12 sums, 15 modulations and 6
+     residuals a chunk: 408, 510 and 204 a tile), and profiled once:
+     device time by kind of kernel, the card's idle share, and the
+     launches and ms of cuDNN's layout transposes and of torch's strided
+     bf16 add.
      b. The same for the int8 generator quantized from the same weights
         (``quantize_model``), ``int8`` and ``int8_static`` (which calibrates
         once, on real patches of the first tile): the tile loop's coverage
@@ -70,10 +76,10 @@ prints no result.  Phases; any failure exits non-zero:
         checks of a, calibrated once, the coverage of a.
      Each map run is driven with the launch counters set to 0 and read
      after; every kernel of its path must have launched (the bf16 model's:
-     the patch prep and SPADE's two kernels).
+     the patch prep and SPADE's three kernels).
 
   6. Training (of csrc/ only SPADE's kernels run, in a bf16 GauGAN's
-     no-grad D-phase generator forward: 27 a step; every other count of
+     no-grad D-phase generator forward: 33 a step; every other count of
      the timed steps must stay 0):
      a. spade_256 at full width (GauGAN, image 256, batch 16, default
         widths, float32 parameters) on the port's SyntheticSampler, in
@@ -541,40 +547,51 @@ def qconv_case(dev, seed):
 
 def generator_spade_calls(plan=FULL_PLAN, size=512, batch=16):
     """The bf16 generator's fused SPADE calls in one forward, in order:
-    (wrapper, (B, C, H, W) of x, up).  Block i runs at size / 64 * 2^i:
-    the sums of its input (block 0: the dense output; then the previous
-    block's output before its upsample), spade_1 (reading that input,
-    upsampled after block 0), the sums of conv_1's output, spade_2 and,
-    when cin != ch, spade_3 (as spade_1)."""
+    (wrapper, (B, C, H, W) of x, up, biased).  Block i runs at size / 64 *
+    2^i: the sums of its input (block 0: the dense output; then the
+    previous block's output before its upsample), spade_1 (reading that
+    input, upsampled after block 0), the sums of conv_1's output and
+    spade_2 (both reading it with conv_1's bias: ``biased``), spade_3 when
+    cin != ch (as spade_1), then the residual: x is the block input (read
+    upsampled after block 0) or, with a learned skip, conv_3's output with
+    its bias.  Every modulation adds its gamma/beta conv's bias."""
     out, cin = [], plan[0]
     for i, ch in enumerate(plan):
         s = size // 64 * 2 ** i
         up = i > 0
         x_in = (batch, cin, s // 2, s // 2) if up else (batch, cin, s, s)
-        out += [(SPADE_SUMS, x_in, False), (SPADE_MOD, x_in, up),
-                (SPADE_SUMS, (batch, ch, s, s), False),
-                (SPADE_MOD, (batch, ch, s, s), False)]
+        h = (batch, ch, s, s)
+        out += [(SPADE_SUMS, x_in, False, False), (SPADE_MOD, x_in, up, False),
+                (SPADE_SUMS, h, False, True), (SPADE_MOD, h, False, True)]
         if cin != ch:
-            out.append((SPADE_MOD, x_in, up))
+            out += [(SPADE_MOD, x_in, up, False), (SPADE_RES, h, False, True)]
+        else:
+            out.append((SPADE_RES, x_in, up, False))
         cin = ch
     return out
 
 
 def spade_bound(calls):
-    """(bound ms, what bounds it) of a list of SPADE calls: each input read
-    once and each output written once at the memory rate (bf16 x, gb and
-    out; float32 sums, mean and r), against 3 float operations per value
-    summed and 8 per value modulated at the float32 peak."""
+    """(bound ms, what bounds it, bytes) of a list of SPADE calls: each
+    input read once and each output written once at the memory rate (bf16
+    x, gb, h and out, the bf16 bias vectors; float32 sums, mean and r),
+    against the float operations per value at the float32 peak: 3 summed
+    (4 with a bias), 10 modulated (a bias on gamma and on beta; 11 with
+    one on x), 2 for a residual (3 with the skip's bias)."""
     moved = ops = 0
-    for name, (b, c, h, w), up in calls:
+    for name, (b, c, h, w), up, biased in calls:
         n = b * c * h * w
+        out = 4 * n if up else n
         if name == SPADE_SUMS:
-            moved += 2 * n + 2 * 4 * c
-            ops += 3 * n
+            moved += 2 * n + 2 * 4 * c + 2 * c * biased
+            ops += (3 + biased) * n
+        elif name == SPADE_MOD:
+            moved += 2 * n + 2 * 2 * out + 2 * out + 2 * 4 * c \
+                + 2 * 2 * c + 2 * c * biased
+            ops += (10 + biased) * out
         else:
-            out = 4 * n if up else n
-            moved += 2 * n + 2 * 2 * out + 2 * out + 2 * 4 * c
-            ops += 8 * out
+            moved += 2 * n + 2 * out + 2 * out + 2 * c * (1 + biased)
+            ops += (2 + biased) * out
     bytes_ms = moved / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_F32_FLOPS * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
@@ -582,88 +599,132 @@ def spade_bound(calls):
 
 
 def spade_case(dev, seed):
-    """SPADE's chain (csrc/spade.cu) at one chunk's 27 calls at full width
-    (batch 16, image 512): ``spade_sums`` against its plain version
-    (moments within 1e-5 (|mean| + std), variance within 1e-4 of itself,
-    the same bits on a second launch) and ``spade_modulate`` equal to its
-    plain version bit for bit from the same moments.  Timed per chunk:
-    each wrapper's calls, their plain versions, and, as the yardstick of
-    the normalising half, ``F.batch_norm(x, None, None, training=True)``
-    on the tensors whose moments the chunk takes (one PyTorch call for the
-    same moments and a normalised tensor; the port never calls it).
-    Returns the two wrappers' records."""
+    """SPADE's chain (csrc/spade.cu) at one chunk's 33 calls at full width
+    (batch 16, image 512), each with its conv biases as the bf16 serving
+    path passes them, in the served layout (channels_last) and in NCHW
+    (training's no-grad generation): ``spade_sums`` against its plain
+    version (moments within 1e-5 (|mean| + std), variance within 1e-4 of
+    itself, the same bits on a second launch), ``spade_modulate`` and
+    ``spade_residual`` equal to their plain versions bit for bit (the
+    modulation from the same moments).  Timed per chunk in channels_last:
+    each wrapper's calls, their plain versions, and as yardsticks
+    ``F.batch_norm(x, None, None, training=True)`` on the tensors whose
+    moments the chunk takes (one PyTorch call for the same moments and a
+    normalised tensor) and ``torch.add`` of each residual's two tensors
+    (the block input upsampled beforehand); the port calls neither.
+    Returns the three wrappers' records."""
     import torch
     import torch.nn.functional as F
 
     from moonsuperresolution_tpu_torch.ops import spade as sp
 
     calls = generator_spade_calls()
-    check(len(calls) == 27, f"{len(calls)} SPADE calls per chunk")
+    check(len(calls) == 33, f"{len(calls)} SPADE calls per chunk")
     gen = torch.Generator(dev).manual_seed(seed)
-    args, err = {SPADE_SUMS: [], SPADE_MOD: []}, {SPADE_SUMS: 0.0,
-                                                  SPADE_MOD: 0.0}
-    for name, shape, up in calls:
+    keys = (SPADE_SUMS, SPADE_MOD, SPADE_RES)
+    args, err = {k: [] for k in keys}, {k: 0.0 for k in keys}
+    adds = []
+
+    def rand(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + shift).to(torch.bfloat16)
+
+    def same_bits(a, b):
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+    for name, shape, up, biased in calls:
         b, c, h, w = shape
-        x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(
-            torch.bfloat16)
-        n = b * h * w
-        got = sp.moments_from_sums(*sp.spade_sums(x, "batch"), n)
-        again = sp.spade_sums(x, "batch")
-        torch.cuda.synchronize()
-        want = sp.moments_from_sums(*sp.spade_sums_plain(x, "batch"), n)
-        check(all(torch.equal(u, v) for u, v in
-                  zip(sp.spade_sums(x, "batch"), again)),
-              f"spade_sums {shape}: two launches differ")
-        (gm, gv), (wm, wv) = got, want
-        check(bool(((gm - wm).abs() <= 1e-5 * (wm.abs() + wv.sqrt())).all()
-                   and ((gv - wv).abs() <= 1e-4 * wv).all()),
-              f"spade_sums {shape}: moments beyond 1e-5 / 1e-4")
-        err[SPADE_SUMS] = max(err[SPADE_SUMS], float((gm - wm).abs().max()),
-                              float((gv - wv).abs().max()))
-        if name == SPADE_SUMS:
-            args[SPADE_SUMS].append((x, "batch"))
-            continue
         k = 2 if up else 1
-        gb = torch.randn((b, 2 * c, k * h, k * w), generator=gen,
-                         device=dev).to(torch.bfloat16)
-        r = sp.inv_std(wv)
-        a = (x, gb, wm, r, 0.2, up)
-        out = sp.spade_modulate(*a)
-        torch.cuda.synchronize()
-        ref = sp.spade_modulate_plain(*a)
-        e = float((out.float() - ref.float()).abs().max())
-        check(torch.equal(out.view(torch.int16), ref.view(torch.int16)),
-              f"spade_modulate {shape} up={up}: not bit for bit ({e})")
-        err[SPADE_MOD] = max(err[SPADE_MOD], e)
-        args[SPADE_MOD].append(a)
-        del out, ref
+        full = (b, c, k * h, k * w)
+        for layout in (torch.channels_last, torch.contiguous_format):
+            cl = layout == torch.channels_last
+            tag = f"{name} {shape} up={up} {'NHWC' if cl else 'NCHW'}"
+            x = rand(shape, 1.5, 0.3).contiguous(memory_format=layout)
+            bias = rand((c,), 0.5) if biased else None
+            if name == SPADE_RES:
+                hh = rand(full).contiguous(memory_format=layout)
+                a = (hh, rand((c,), 0.5), x, bias, up)
+                out = sp.spade_residual(*a)
+                torch.cuda.synchronize()
+                ref = sp.spade_residual_plain(*a)
+                e = float((out.float() - ref.float()).abs().max())
+                check(same_bits(out, ref) and out.is_contiguous(
+                    memory_format=layout), f"{tag}: not bit for bit ({e})")
+                err[name] = max(err[name], e)
+                if cl:
+                    args[name].append(a)
+                    res = F.interpolate(x, scale_factor=2, mode="nearest") \
+                        if up else x
+                    adds.append((hh, res))
+                del out, ref
+                continue
+            n = b * h * w
+            got = sp.moments_from_sums(*sp.spade_sums(x, "batch", bias), n)
+            again = sp.spade_sums(x, "batch", bias)
+            torch.cuda.synchronize()
+            want = sp.moments_from_sums(
+                *sp.spade_sums_plain(x, "batch", bias), n)
+            check(all(torch.equal(u, v) for u, v in
+                      zip(sp.spade_sums(x, "batch", bias), again)),
+                  f"{tag} sums: two launches differ")
+            (gm, gv), (wm, wv) = got, want
+            check(bool(((gm - wm).abs() <= 1e-5 * (wm.abs() + wv.sqrt())).all()
+                       and ((gv - wv).abs() <= 1e-4 * wv).all()),
+                  f"{tag} sums: moments beyond 1e-5 / 1e-4")
+            err[SPADE_SUMS] = max(err[SPADE_SUMS],
+                                  float((gm - wm).abs().max()),
+                                  float((gv - wv).abs().max()))
+            if name == SPADE_SUMS:
+                if cl:
+                    args[SPADE_SUMS].append((x, "batch", bias))
+                continue
+            gb = rand((b, 2 * c, k * h, k * w)).contiguous(
+                memory_format=layout)
+            a = (x, gb, wm, sp.inv_std(wv), 0.2, up, bias, rand((2 * c,), 0.5))
+            out = sp.spade_modulate(*a)
+            torch.cuda.synchronize()
+            ref = sp.spade_modulate_plain(*a)
+            e = float((out.float() - ref.float()).abs().max())
+            check(same_bits(out, ref) and out.is_contiguous(
+                memory_format=layout), f"{tag}: not bit for bit ({e})")
+            err[SPADE_MOD] = max(err[SPADE_MOD], e)
+            if cl:
+                args[SPADE_MOD].append(a)
+            del out, ref
 
     def run(fn, key):
         return lambda: [fn(*a) for a in args[key]]
 
-    bn = [x for x, _ in args[SPADE_SUMS]]
+    library = {
+        # Moments and a normalised tensor in one call, a yardstick for the
+        # sums; no PyTorch call normalises, modulates and applies
+        # LeakyReLU.
+        SPADE_SUMS: lambda: [F.batch_norm(a[0], None, None, training=True,
+                                          eps=1e-5)
+                             for a in args[SPADE_SUMS]],
+        SPADE_RES: lambda: [torch.add(u, v) for u, v in adds]}
     records = []
-    for key, wrapper, plain in (
-            (SPADE_SUMS, sp.spade_sums, sp.spade_sums_plain),
-            (SPADE_MOD, sp.spade_modulate, sp.spade_modulate_plain)):
+    for key, wrapper, plain, replaces in (
+            (SPADE_SUMS, sp.spade_sums, sp.spade_sums_plain,
+             # The JAX SPADE's moments and modulation, left to XLA.
+             "moonsuperresolution_tpu/models/layers.py:198"),
+            (SPADE_MOD, sp.spade_modulate, sp.spade_modulate_plain,
+             "moonsuperresolution_tpu/models/layers.py:198"),
+            (SPADE_RES, sp.spade_residual, sp.spade_residual_plain,
+             # The JAX block's bias adds and residual sum, left to XLA.
+             "moonsuperresolution_tpu/models/layers.py:295")):
         bound, by, moved = spade_bound([c for c in calls if c[0] == key])
         records.append(dict(
             name=key, route="cuda",
             source="moonsuperresolution_tpu_torch/csrc/spade.cu",
-            # The JAX SPADE's moments and modulation, left to XLA.
-            replaces="moonsuperresolution_tpu/models/layers.py:198",
-            wrapper=wrapper, max_abs_err=err[key],
+            replaces=replaces, wrapper=wrapper, max_abs_err=err[key],
             ms=cuda_ms(run(wrapper, key), reps=20),
             plain_ms=cuda_ms(run(plain, key), reps=5, warmup=1),
             bound_ms=bound, bound_by=by, chunk_gb=moved / 1e9,
-            calls_per_chunk=len(args[key]),
-            # F.batch_norm over the same tensors: moments and a normalised
-            # tensor in one call, a yardstick for the sums; no PyTorch call
-            # normalises, modulates and applies LeakyReLU.
-            library_ms=(cuda_ms(lambda: [F.batch_norm(
-                x, None, None, training=True, eps=1e-5) for x in bn],
-                reps=20) if key == SPADE_SUMS else None)))
-    del args, bn
+            calls_per_chunk=len(args[key]), layout="channels_last",
+            library_ms=(cuda_ms(library[key], reps=20)
+                        if key in library else None)))
+    del args, adds
     torch.cuda.empty_cache()
     return records
 
@@ -685,12 +746,13 @@ def counted_run(kernels, fn, need, what):
 
 PATCHES, QCONV = "extract_normalize_patches", "qconv3x3_s8"
 SPADE_SUMS, SPADE_MOD = "spade_sums", "spade_modulate"
-SPADE = (SPADE_SUMS, SPADE_MOD)
+SPADE_RES = "spade_residual"
+SPADE = (SPADE_SUMS, SPADE_MOD, SPADE_RES)
 
 
 def spade_per_forward(plan):
     """{wrapper: calls} of one bf16 generator forward on the fused path."""
-    calls = [name for name, _, _ in generator_spade_calls(plan)]
+    calls = [call[0] for call in generator_spade_calls(plan)]
     return {k: calls.count(k) for k in SPADE}
 
 
@@ -786,13 +848,14 @@ def main_path(dev, seed, kernels):
 
     model = full_width_model(dev, seed)
     batches = []
-
-    def counted(source, generator=None):
-        batches.append(source.shape[0])
-        return model(source, generator=generator)
-
-    eng = DEMSuperResolution(DSRConfig(seed=seed, **PROD), model=counted,
+    model.register_forward_pre_hook(
+        lambda m, a: batches.append(a[0].shape[0]))
+    # The engine serves the model channels_last (infer/engine.py).
+    eng = DEMSuperResolution(DSRConfig(seed=seed, **PROD), model=model,
                              device=dev)
+    check(all(p.is_contiguous(memory_format=torch.channels_last)
+              for p in model.parameters() if p.ndim == 4),
+          "the served model's conv weights are not channels_last")
     t = PROD["tile_size"]
     img, dem = synthetic_raster(t, t * N_TILES, seed)
 
@@ -829,7 +892,8 @@ def main_path(dev, seed, kernels):
 
 
 KERNEL_KINDS = (  # (category, substrings of the CUDA kernel's name)
-    ("SPADE chain (csrc/spade.cu)", ("spade_sums", "spade_modulate")),
+    ("SPADE chain (csrc/spade.cu)", ("spade_sums", "spade_modulate",
+                                     "spade_residual")),
     ("int8 conv (csrc/qconv.cu)", ("qconv3x3",)),
     ("optimizer (Adam)", ("multi_tensor_apply", "adam")),
     # cuDNN's FFT convolutions: fft kernels and the complex products.
@@ -852,10 +916,11 @@ def kernel_kind(name):
     return "other"
 
 
-def profile_device(fn, what):
+def profile_device(fn, what, watch=None):
     """``fn()`` once under the profiler: device ms by kind of kernel, the
     wall time to a synchronise, the busy ms and the number of device
-    kernels; the top kernels go to stderr."""
+    kernels; the top kernels go to stderr.  With ``watch`` (a dict), it
+    gets the launches and device ms of each of ``WATCHED``'s kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -866,7 +931,35 @@ def profile_device(fn, what):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kind, busy, n_kernels = device_summary(prof, what)
+    if watch is not None:
+        watch.update(watched_kernels(prof))
     return by_kind, wall, busy, n_kernels
+
+
+# Kernels the bf16 tile should no longer launch, or only for the mask
+# convs: (label, substrings all in the kernel's name).  cuDNN's layout
+# transposes around an NCHW conv, and torch's bf16 add on its strided
+# (non-vectorised) path, which a conv's separate bias pass takes.
+WATCHED = (("nchwToNhwc", ("nchwToNhwc",)),
+           ("nhwcToNchw", ("nhwcToNchw",)),
+           ("strided bf16 add", ("elementwise_kernel<128, 4", "_add<",
+                                 "BFloat16")))
+
+
+def watched_kernels(prof):
+    """{label: {"launches", "ms"}} of ``WATCHED`` in a finished profile."""
+    import torch
+
+    out = {label: {"launches": 0, "ms": 0.0} for label, _ in WATCHED}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.self_device_time_total <= 0:
+            continue
+        for label, keys in WATCHED:
+            if all(k in ev.key for k in keys):
+                out[label]["launches"] += ev.count
+                out[label]["ms"] += ev.self_device_time_total / 1e3
+    return out
 
 
 def device_summary(prof, what):
@@ -905,8 +998,9 @@ def full_tile(eng, fpp, seed, kernels, reps=3):
         eng.process_tile(0, 0)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    watch = {}
     by_kind, wall, busy, _ = profile_device(
-        lambda: eng.process_tile(0, 0), "one interior tile")
+        lambda: eng.process_tile(0, 0), "one interior tile", watch)
     n = eng.geom.grid ** 2
     tile_s = sum(times) / len(times)
     return dict(
@@ -918,7 +1012,7 @@ def full_tile(eng, fpp, seed, kernels, reps=3):
         full_tile_bf16_peak_share=n * fpp / tile_s / H100_BF16_FLOPS,
         profiled_tile_s=wall, device_busy_ms=busy,
         device_idle_share=max(0.0, 1 - busy / 1e3 / wall),
-        device_ms_by_kind=by_kind)
+        device_ms_by_kind=by_kind, watched_kernels_per_tile=watch)
 
 
 def rel_rmse(got, want):
@@ -999,7 +1093,7 @@ def int8_paths(dev, seed, model, kernels, img, dem, bf16_good, fpp):
         per_tile = st["full_tile_launches"]
         check(per_tile[QCONV] == 30 * -(-g.grid ** 2 // PROD["batch_size"])
               and per_tile[PATCHES] == 1
-              and per_tile[SPADE_SUMS] == per_tile[SPADE_MOD] == 0,
+              and not any(per_tile[k] for k in SPADE),
               f"{mode}: launches per interior tile {per_tile}")
         with torch.inference_mode():
             out = qmodel(src16,
@@ -2354,6 +2448,24 @@ def nccl_world_one(dev, seed, kernels):
                 nccl1_ms_per_step=dp_ms, nccl1_no_group_ms_per_step=ref_ms)
 
 
+def free_card(dev, what):
+    """Frees what this process no longer uses (garbage cycles, the
+    allocator's cache) before other processes share the card; prints what
+    it still holds and what the card has free."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[{what}] this process holds "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved(dev) / 2**30:.2f} reserved); the "
+          f"card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free",
+          file=sys.stderr)
+
+
 def run_workers(kind, argvs, what):
     """``chip_smoke.py --worker kind -- argv`` once per argv, all at once,
     from this script's directory; each must exit 0 within
@@ -2375,16 +2487,18 @@ def run_workers(kind, argvs, what):
                 p.kill()
                 p.communicate()
     secs = time.perf_counter() - t0
-    records = []
+    records, lines = [], []
     for i, (p, (out, err)) in enumerate(zip(procs, outs)):
-        lines = [ln for ln in out.splitlines() if ln.startswith("WORKER ")]
-        if p.returncode != 0 or not lines:
+        lines.append([ln for ln in out.splitlines()
+                      if ln.startswith("WORKER ")])
+        if p.returncode != 0 or not lines[i]:   # every failed worker's log
             print(f"[{what}] worker {i} (rc {p.returncode}):\n{out[-3000:]}"
                   f"\n{err[-6000:]}", file=sys.stderr)
-        check(p.returncode == 0 and lines,
+    for i, p in enumerate(procs):
+        check(p.returncode == 0 and lines[i],
               f"{what}: worker {i} exited {p.returncode}")
-        print(f"[{what}] worker {i}: {lines[-1]}")
-        records.append(json.loads(lines[-1][len("WORKER "):]))
+        print(f"[{what}] worker {i}: {lines[i][-1]}")
+        records.append(json.loads(lines[i][-1][len("WORKER "):]))
     return records, secs
 
 
@@ -2460,7 +2574,7 @@ def two_processes_on_one_card(dev, seed):
         for dtype in ("float32", "bfloat16"):
             bf16 = dtype == "bfloat16"
             steps = STEPS_9B if bf16 else 1
-            torch.cuda.empty_cache()
+            free_card(dev, f"9b {name} {mesh} {dtype}")
             with tempfile.TemporaryDirectory(prefix="chip_smoke_9b_") as td:
                 port = free_port()
                 argv = ["--recipe", "spade_256", "--synthetic", "--no_log",
@@ -2780,6 +2894,10 @@ def main(argv=None):
               f"SPADE launches per tile {got}")
         print("[full tile] device ms by kind: " + ", ".join(
             f"{k} {v:.1f}" for k, v in stats["device_ms_by_kind"].items()))
+        print("[full tile] a tile's layout transposes and strided bf16 "
+              "adds: " + ", ".join(
+                  f"{k} {v['launches']} launches, {v['ms']:.2f} ms"
+                  for k, v in stats["watched_kernels_per_tile"].items()))
         del eng
 
         phase = "3b int8 main path"

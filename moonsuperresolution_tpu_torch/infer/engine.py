@@ -21,6 +21,13 @@ The overlapping generations are the Monte-Carlo uncertainty estimate of the
 reference: std = sqrt(S / w_sum) over ~64 generations per pixel at stride =
 image_size / 8 (process_full_tiles.py:386-414).
 
+A float GauGAN-family model (``GauGAN``) is served channels_last: the
+engine converts its parameters once, in place (the shapes, the state dict
+and the checkpoints stay NCHW), and hands it channels_last patch batches,
+so its activations stay NHWC from the first conv to the head and cuDNN's
+NHWC convs transpose nothing in or out.  Any other model (the int8 one, a
+callable) gets NCHW batches, as before.
+
 Host work that stays on the host: the nodata fill (scipy, infer/fill.py)
 and the GeoTIFF codec.  The /16 synthesis's resizes run on the engine's
 device (ops/resize.py).
@@ -158,7 +165,9 @@ def quantize_model(model: GauGAN, quantize: str,
         else QuantizedGauGAN
     qmodel = cls(model, acc_dtype=int8_acc)
     qmodel.encoder.to(DTYPES[compute_dtype])
-    qmodel = qmodel.to(dev).eval()
+    # NCHW whatever layout ``model`` was served in: the int8 generator's
+    # glue keeps its own layouts.
+    qmodel = qmodel.to(dev, memory_format=torch.contiguous_format).eval()
     if quantize == "int8_static":
         qmodel.bootstrap()
     return qmodel
@@ -199,6 +208,13 @@ class DEMSuperResolution:
                  device=None, mesh=None):
         self.cfg = config
         self.model = model
+        # The float GauGAN runs NHWC (module docstring): its parameters
+        # become channels_last here, once and in place, and so do the
+        # batches the tile program gives it.
+        self.memory_format = torch.contiguous_format
+        if isinstance(model, GauGAN):
+            model.to(memory_format=torch.channels_last)
+            self.memory_format = torch.channels_last
         if mesh is not None and mesh.multiprocess:
             raise ValueError("the engine's mesh is one process's devices; "
                              "across processes, shard the tile list")
@@ -314,11 +330,12 @@ class DEMSuperResolution:
         n = g.grid * g.grid
         x, valid, dmin, dmax = extract_normalize_patches(
             img_slab, dem_slab, (g.grid, g.grid), s, i_sz, self.no_value)
-        x = x.permute(0, 3, 1, 2)  # the kernel's contiguous [N, 2, I, I]
+        # x: the kernel's contiguous [N, I, I, 2]; permute(0, 3, 1, 2) is
+        # its NCHW view in channels_last memory.
         valid = valid > 0
         if model is None:
             # Identity: the low-res DEM channel (elementwise, no batching).
-            preds = x[:, 1]
+            preds = x[..., 1]
         else:
             # The reference's batch composition: valid patches only, packed
             # densely in grid order (a stable argsort), the last batch
@@ -333,9 +350,11 @@ class DEMSuperResolution:
             for c0 in range(0, n_active, b):
                 k = min(b, n_active - c0)
                 idx = order[c0 : c0 + k]
-                xb = torch.zeros((b, 2, i_sz, i_sz), dtype=self.compute_dtype,
-                                 device=x.device)
-                xb[:k] = x.index_select(0, idx)
+                xb = torch.empty((b, 2, i_sz, i_sz), dtype=self.compute_dtype,
+                                 device=x.device,
+                                 memory_format=self.memory_format)
+                xb[k:] = 0
+                xb[:k] = x.index_select(0, idx).permute(0, 3, 1, 2)
                 yb = model(xb, generator=generator)
                 preds.index_copy_(0, idx, yb.reshape(b, i_sz, i_sz)[:k].float())
 

@@ -1,8 +1,11 @@
 """Core layers of the SPADE model family as torch modules (counterpart of
 moonsuperresolution_tpu/models/layers.py).
 
-Tensors are NCHW.  Each module computes in its ``dtype`` and casts its
-weights and biases to it where it uses them, as flax's ``dtype=`` does: a
+Tensors are NCHW by shape; their memory may be NCHW or channels_last
+(NHWC), and every op here keeps the layout it is given (the serving engine
+holds its model channels_last: infer/engine.py).  Each module computes in
+its ``dtype`` and casts its weights and biases to it where it uses them,
+as flax's ``dtype=`` does: a
 model held in float32 computes its convs and matmuls in bf16 (mixed-precision
 training, float32 parameters for Adam), and a model cast as a whole with
 ``.to(bf16)`` (inference) computes the same, the casts being the identity.
@@ -18,6 +21,11 @@ Where PyTorch's defaults differ from the reference:
   even size that is 0 before and 1 after, where ``padding=1`` would pad 1
   on both sides (``same_pad``).
 - Initializers are glorot (Keras) rather than torch's Kaiming defaults.
+- A conv's bias is added after the conv, in the conv's dtype, as a pass of
+  its own (``conv_same``): the order of PyTorch's cuDNN route on the card
+  and of flax's ``nn.Conv``.  The fused path (``SpadeResidualBlock.fused``)
+  hands some biases to its kernels instead, which add them in the same
+  place and rounding.
 
 Multi-process runs (parallel/mesh.py sets the axes): with ``data_axis``
 set, the "batch" SPADE moments are those of the global batch, their sums
@@ -85,16 +93,23 @@ def same_pad(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def add_bias(y: torch.Tensor, bias=None) -> torch.Tensor:
+    """``y + bias`` over the channels, in place (the conv's output is not
+    needed by its backward), rounded to ``y``'s dtype as a separate pass."""
+    return y if bias is None else y.add_(bias.view(1, -1, 1, 1))
+
+
 def conv_same(x: torch.Tensor, weight: torch.Tensor, bias=None,
               stride: int = 1) -> torch.Tensor:
-    """2-D conv with XLA's "SAME" padding (asymmetric where XLA's is)."""
+    """2-D conv with XLA's "SAME" padding (asymmetric where XLA's is), then
+    its bias pass."""
     kh, kw = weight.shape[-2:]
     top, bottom = same_pad(x.shape[-2], kh, stride)
     left, right = same_pad(x.shape[-1], kw, stride)
     if top == bottom and left == right:
-        return F.conv2d(x, weight, bias, stride, (top, left))
-    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias,
-                    stride)
+        return add_bias(F.conv2d(x, weight, None, stride, (top, left)), bias)
+    return add_bias(F.conv2d(F.pad(x, (left, right, top, bottom)), weight,
+                             None, stride), bias)
 
 
 class Conv(nn.Conv2d):
@@ -109,11 +124,17 @@ class Conv(nn.Conv2d):
         self.same = padding == "SAME"
 
     def forward(self, x):
+        y, b = self.unbiased(x)
+        return add_bias(y, b)
+
+    def unbiased(self, x):
+        """(the conv of ``x`` without its bias pass, the bias in ``dtype``
+        or None): for a kernel that adds the bias itself."""
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
         if self.same:
-            return conv_same(x, w, b, self.stride[0])
-        return F.conv2d(x, w, b, self.stride[0])
+            return conv_same(x, w, None, self.stride[0]), b
+        return F.conv2d(x, w, None, self.stride[0]), b
 
 
 class Dense(nn.Linear):
@@ -215,7 +236,8 @@ class SPADE(nn.Module):
 
     ``modulate`` is the fused path's SPADE (``SpadeResidualBlock.fused``):
     the block's LeakyReLU of the layer's output, from an input whose
-    moments were taken already, in one kernel (ops/spade.py).
+    moments were taken already, in one kernel (ops/spade.py), which also
+    adds the gamma/beta conv's bias.
     """
 
     def __init__(self, filters: int, hidden: int = 128, stats: str = "batch",
@@ -241,13 +263,16 @@ class SPADE(nn.Module):
 
     def modulate(self, src: spade_ops.Normed, mask, alpha: float):
         """``leaky_relu(forward(...), alpha)`` of the input ``src``."""
-        gb = self._gamma_beta(mask, src.hw)
-        return spade_ops.spade_modulate(src.x, gb, src.mean, src.r, alpha,
-                                        src.up)
+        gb, bias = self._gamma_beta(mask, src.hw, fold=True)
+        return spade_ops.spade_modulate(spade_ops.alike(src.x, gb), gb,
+                                        src.mean, src.r, alpha, src.up,
+                                        src.bias, bias)
 
-    def _gamma_beta(self, mask, hw, model_axis: Axis = ONE):
+    def _gamma_beta(self, mask, hw, model_axis: Axis = ONE,
+                    fold: bool = False):
         """The gamma/beta conv's output [B, 2C, H, W] at the feature
-        resolution ``hw``: gamma its first C channels, beta the rest."""
+        resolution ``hw``: gamma its first C channels, beta the rest.  With
+        ``fold``, (that output without its bias pass, the bias [2C])."""
         mask = resize_nearest(mask, hw)
         h = F.relu(self.conv(mask))
         params = (self.conv_gamma.weight, self.conv_beta.weight,
@@ -257,8 +282,11 @@ class SPADE(nn.Module):
             h = copy_to_model(h, model_axis)
             params = [copy_to_model(t, model_axis)[sl] for t in params]
         wg, wb, bg, bb = params
-        return F.conv2d(h, torch.cat([wg, wb]).to(self.dtype),
-                        torch.cat([bg, bb]).to(self.dtype), padding=1)
+        w = torch.cat([wg, wb]).to(self.dtype)
+        b = torch.cat([bg, bb]).to(self.dtype)
+        if fold:
+            return conv_same(h, w), b
+        return conv_same(h, w, b)
 
 
 class SpadeResidualBlock(nn.Module):
@@ -270,12 +298,18 @@ class SpadeResidualBlock(nn.Module):
 
     Where ``fused()`` holds (autograd off, bf16 compute with float32
     statistics, not tensor-parallel: serving, and training's no-grad
-    generation) each SPADE and its LeakyReLU is one ``spade_modulate`` and
-    each set of moments one ``spade_sums`` (ops/spade.py), the block
-    input's taken once for spade_1 and spade_3.  The generator then hands
-    over the input as a ``Normed`` (``normed=``): the previous block's
-    output before its upsample, with its moments; ``x``, the upsampled
-    input, is needed only for the residual of a block without a skip."""
+    generation) each SPADE and its LeakyReLU is one ``spade_modulate``,
+    each set of moments one ``spade_sums``, and the closing sum one
+    ``spade_residual`` (ops/spade.py), the block input's moments taken
+    once for spade_1 and spade_3.  The convs whose outputs those kernels
+    read run without their bias pass (``Conv.unbiased``); the kernels add
+    the biases, rounding where the pass would.  Tensors take the layout
+    of the block's conv weights, NCHW or channels_last (``ops.spade.
+    alike``; a copy only where an input comes in the other one, as the
+    dense layer's NHWC view does in an NCHW model).  The generator hands
+    over the input as a ``Normed`` (``normed=``, ``x`` None): the previous
+    block's output before its upsample, with its moments, which the
+    kernels read upsampled, the residual of a block without a skip too."""
 
     def __init__(self, in_filters: int, filters: int, alpha: float = 0.2,
                  stats: str = "batch", dtype=torch.float32,
@@ -323,17 +357,18 @@ class SpadeResidualBlock(nn.Module):
         return self.conv_3(F.leaky_relu(skip, a)) + h
 
     def _forward_fused(self, x, mask, src):
-        if x is not None:
-            x = x.contiguous()
         if src is None:
-            src = spade_ops.normed(x, self.stats, self.data_axis)
+            src = spade_ops.normed(spade_ops.alike(x, self.conv_1.weight),
+                                   self.stats, self.data_axis)
         a = self.alpha
-        h = self.conv_1(self.spade_1.modulate(src, mask, a))
-        h = self.conv_2(self.spade_2.modulate(
-            spade_ops.normed(h, self.stats, self.spade_2.data_axis), mask, a))
+        h, b1 = self.conv_1.unbiased(self.spade_1.modulate(src, mask, a))
+        h, b2 = self.conv_2.unbiased(self.spade_2.modulate(spade_ops.normed(
+            h, self.stats, self.spade_2.data_axis, bias=b1), mask, a))
         if self.spade_3 is None:
-            return x + h
-        return self.conv_3(self.spade_3.modulate(src, mask, a)) + h
+            return spade_ops.spade_residual(h, b2, spade_ops.alike(src.x, h),
+                                            up=src.up)
+        skip, b3 = self.conv_3.unbiased(self.spade_3.modulate(src, mask, a))
+        return spade_ops.spade_residual(h, b2, spade_ops.alike(skip, h), b3)
 
     def _column(self, conv: Conv, x):
         """Column-parallel: whole input, this process's out-channel slice of

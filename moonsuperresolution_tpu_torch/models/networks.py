@@ -12,7 +12,9 @@ Both Dense layers meet an NHWC flatten or reshape in the reference: the
 encoder flattens its last feature map as [B, H, W, C] and the generator
 reshapes its Dense output as [B, sw, sw, C].  The port keeps the JAX Dense
 weights as they are (transposed to [out, in]) and does the flatten and the
-reshape in NHWC order in the forward pass.
+reshape in NHWC order in the forward pass: views, for a channels_last
+model (the served one, infer/engine.py), whose activations stay
+channels_last from the first conv to the head.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from moonsuperresolution_tpu_torch.parallel.collectives import (
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
-    """Keras UpSampling2D (nearest), 2x on NCHW."""
+    """Keras UpSampling2D (nearest), 2x on NCHW (by shape; the memory
+    layout is kept)."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
@@ -76,8 +79,16 @@ def subpixel_head_conv(x: torch.Tensor, kernel: torch.Tensor,
                        bias: torch.Tensor) -> torch.Tensor:
     """``conv4x4_SAME(upsample2x_nearest(x), kernel) + bias`` computed at
     pre-upsample resolution (see collapse_head_kernel)."""
-    y = F.conv2d(x, collapse_head_kernel(kernel), padding=1)
-    return depth_to_space2x(y, kernel.shape[0]) + bias[None, :, None, None]
+    return subpixel_conv(x, collapse_head_kernel(kernel), bias)
+
+
+def subpixel_conv(x: torch.Tensor, phases: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """``subpixel_head_conv`` from the collapsed phase kernels ``phases``
+    [4*O, C, 3, 3]."""
+    y = F.conv2d(x, phases, padding=1)
+    return depth_to_space2x(y, phases.shape[0] // 4) + bias[None, :, None,
+                                                            None]
 
 
 class Encoder(nn.Module):
@@ -123,9 +134,11 @@ class SpadeGenerator(nn.Module):
     upsampled.  Where the next block takes the fused path
     (``SpadeResidualBlock.fused``) only the moments are taken: the block
     reads the pre-upsample output through its kernels, and the output is
-    upsampled only if that block has no learned skip (its residual needs
-    it).  With ``subpixel_head`` the last upsample and the head run as a
-    subpixel conv at pre-upsample resolution.
+    upsampled at all: its residual reads it upsampled too.  With
+    ``subpixel_head`` the last upsample and the head run as a subpixel conv
+    at pre-upsample resolution; with autograd off and the head's weight
+    held in the compute dtype (a served model), its collapsed kernel is
+    made once per set of weights (``head_phases``).
 
     Multi-process (parallel/mesh.py): ``data_axis`` makes the moments of
     the between-block normalisation the global batch's; ``model_axis``
@@ -159,6 +172,7 @@ class SpadeGenerator(nn.Module):
                 stats_dtype=stats_dtype))
             cin = ch
         self.head = nn.Conv2d(cin, 1, 4)
+        self._head_phases = None      # (key, collapsed kernel)
 
     def forward(self, latent, source):
         c0 = self.channel_plan[0]
@@ -173,12 +187,12 @@ class SpadeGenerator(nn.Module):
                 break
             x_hat_up = normed = None
             if following.fused():
-                # The next block reads x upsampled inside its kernels; x
-                # itself is upsampled only for a residual without skip.
-                normed = spade_ops.normed(x.contiguous(), self.stats,
-                                          self.data_axis, up=True)
-                x = None if following.spade_3 is not None \
-                    else upsample2x_nearest(x)
+                # The next block reads x upsampled inside its kernels, its
+                # residual included.
+                normed = spade_ops.normed(
+                    spade_ops.alike(x, following.conv_1.weight), self.stats,
+                    self.data_axis, up=True)
+                x = None
                 continue
             x_hat = spade_normalize(x, self.stats, self.stats_dtype,
                                     self.data_axis)
@@ -189,11 +203,34 @@ class SpadeGenerator(nn.Module):
         x = F.leaky_relu(x, 0.2)
         w, b = self.head.weight.to(self.dtype), self.head.bias.to(self.dtype)
         if self.subpixel_head:
-            x = subpixel_head_conv(x, w, b)
+            x = subpixel_conv(x, self.head_phases(), b)
         else:
             x = conv_same(x, w, b)
         # DEM output in float32 for the denormalisation math.
         return x.float()
+
+    def head_phases(self) -> torch.Tensor:
+        """``collapse_head_kernel`` of the head's weight in the compute
+        dtype, in the weight's memory layout.  With autograd off and the
+        weight held in the compute dtype it is kept, keyed on the weight's
+        storage and version (an in-place update bumps the version), so a
+        served model builds it once per set of weights; otherwise (training,
+        a float32-held model's cast) it is built at every call."""
+        w = self.head.weight
+        if torch.is_grad_enabled() or w.dtype != self.dtype:
+            return self._collapse(w.to(self.dtype))
+        key = (w.data_ptr(), w._version, w.device, w.dtype)
+        if self._head_phases is None or self._head_phases[0] != key:
+            self._head_phases = key, self._collapse(w)
+        return self._head_phases[1]
+
+    @staticmethod
+    def _collapse(w: torch.Tensor) -> torch.Tensor:
+        cl = not w.is_contiguous() and w.is_contiguous(
+            memory_format=torch.channels_last)
+        return collapse_head_kernel(w).contiguous(
+            memory_format=torch.channels_last if cl
+            else torch.contiguous_format)
 
     def _dense(self, latent):
         ax = self.model_axis

@@ -49,8 +49,13 @@ def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     oh, ow = out_hw
     if (h, w) == (oh, ow):
         return x
-    x = x.index_select(-2, _nearest_index(h, oh, x.device))
-    return x.index_select(-1, _nearest_index(w, ow, x.device))
+    ih, iw = _nearest_index(h, oh, x.device), _nearest_index(w, ow, x.device)
+    if x.ndim == 4 and not x.is_contiguous() \
+            and x.is_contiguous(memory_format=torch.channels_last):
+        # Gathered in the NHWC storage order, so it stays channels_last.
+        y = x.permute(0, 2, 3, 1).index_select(1, ih).index_select(2, iw)
+        return y.permute(0, 3, 1, 2)
+    return x.index_select(-2, ih).index_select(-1, iw)
 
 
 # ------------------------------------------------------------- INTER_AREA

@@ -9,11 +9,12 @@ versions, which the CPU runs, against numpy loops.
 Patch prep: validity must match exactly; the rest to 1e-6 (IEEE float32
 division on both sides).  The int8 conv: equal bit for bit, kernel and plain
 version alike (an exact integer sum, then the same float32 roundings in the
-same order).  SPADE's chain: ``spade_modulate`` equal bit for bit given the
-same moments (the same roundings in the same order); ``spade_sums`` in
-another order than torch's, so the moments within 1e-5 (|mean| + std) and
-the variance within 1e-4 of itself, and the same bits from launch to
-launch.
+same order).  SPADE's chain, in NCHW and channels_last, with and without
+the conv biases it folds: ``spade_modulate`` and ``spade_residual`` equal
+bit for bit (the modulation given the same moments: the same roundings in
+the same order); ``spade_sums`` in another order than torch's, so the
+moments within 1e-5 (|mean| + std) and the variance within 1e-4 of itself,
+and the same bits from launch to launch.
 """
 
 import numpy as np
@@ -384,13 +385,138 @@ def test_spade_modulate_kernel_equals_plain(cuda, shape, up, stats):
 
 @pytest.mark.gpu
 def test_spade_kernels_refuse_what_they_do_not_take(cuda):
-    """A CUDA tensor goes through the kernels or the call raises: a
-    channels-last tensor, or tensors on two devices."""
+    """A CUDA tensor goes through the kernels or the call raises: a tensor
+    neither contiguous NCHW nor channels_last, a mix of the two layouts, or
+    tensors on two devices."""
     x = torch.zeros((2, 8, 8, 8), device=cuda, dtype=torch.bfloat16)
     gb = torch.zeros((2, 16, 8, 8), device=cuda, dtype=torch.bfloat16)
     m = torch.zeros(8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        sp.spade_sums(x.contiguous(memory_format=torch.channels_last),
-                      "batch")
+        sp.spade_sums(x[:, :, ::2], "batch")
+    with pytest.raises(ValueError, match="mix"):
+        sp.spade_modulate(x, gb.contiguous(memory_format=torch.channels_last),
+                          m, m, 0.2)
+    with pytest.raises(ValueError, match="mix"):
+        sp.spade_residual(x, m.to(torch.bfloat16),
+                          x.contiguous(memory_format=torch.channels_last))
     with pytest.raises(ValueError, match="devices"):
         sp.spade_modulate(x, gb, m.cpu(), m, 0.2)
+
+
+# The six blocks of the bf16 generator at full width (batch 16, image 512,
+# plan 1024-1024-1024-512-256-128): (B, cin, ch, S, up), S the block's
+# output side; blocks 1-5 read their input upsampled, blocks 3-5 have a
+# learned skip.  Then ragged ones: C % 8 != 0 (NHWC's scalar path), W % 8
+# != 0 (NCHW's), and a small one on both 16-byte paths.
+SPADE_BLOCKS = [(16, 1024, 1024, 8, False), (16, 1024, 1024, 16, True),
+                (16, 1024, 1024, 32, True), (16, 1024, 512, 64, True),
+                (16, 512, 256, 128, True), (16, 256, 128, 256, True),
+                (3, 5, 12, 6, True), (2, 16, 8, 10, True),
+                (2, 12, 12, 14, False), (2, 8, 8, 16, True)]
+LAYOUTS = {"nchw": torch.contiguous_format, "nhwc": torch.channels_last}
+
+
+def _block_calls(gen, block, layout, dev):
+    """One fused block's SPADE calls with its biases, in ``layout``: the
+    sums of the input and of conv_1's output (with its bias), spade_1 and
+    spade_2 (with conv_1's bias on x), the residual (with the skip's bias,
+    or the block input read upsampled)."""
+    b, cin, ch, s, up = block
+
+    def t(shape, scale=1.0, shift=0.0):
+        v = _spade_input(gen, shape, scale, shift, dev)
+        return v.contiguous(memory_format=LAYOUTS[layout]) if v.ndim == 4 \
+            else v
+    x_in = t((b, cin, s // 2, s // 2) if up else (b, cin, s, s), 2.0, 0.4)
+    h1 = t((b, ch, s, s), 1.5, 0.7)
+    b1 = t((ch,), 0.5)
+    return dict(up=up, x_in=x_in, h1=h1, b1=b1,
+                gb1=t((b, 2 * cin, s, s)), gbb1=t((2 * cin,), 0.5),
+                gb2=t((b, 2 * ch, s, s)), gbb2=t((2 * ch,), 0.5),
+                h2=t((b, ch, s, s)), b2=t((ch,), 0.5),
+                skip=t((b, ch, s, s)) if cin != ch else None,
+                b3=t((ch,), 0.5) if cin != ch else None)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("stats", ["batch", "instance"])
+@pytest.mark.parametrize("block", SPADE_BLOCKS, ids=str)
+def test_spade_sums_kernel_with_bias_matches_plain(cuda, block, stats,
+                                                   layout):
+    """The sums of a block's input and of conv_1's output read with its
+    bias, in either layout: moments within the tolerance above, the same
+    bits on a second launch."""
+    c = _block_calls(torch.Generator(cuda).manual_seed(sum(block)), block,
+                     layout, cuda)
+    for x, bias in ((c["x_in"], None), (c["h1"], c["b1"])):
+        n = x.shape[2] * x.shape[3] * (x.shape[0] if stats == "batch" else 1)
+        before = sp.spade_sums.launches
+        got = sp.spade_sums(x, stats, bias)
+        torch.cuda.synchronize()
+        assert sp.spade_sums.launches == before + 1
+        again = sp.spade_sums(x, stats, bias)
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+        (gm, gv), (wm, wv) = (
+            sp.moments_from_sums(*got, n, stats),
+            sp.moments_from_sums(*sp.spade_sums_plain(x, stats, bias), n,
+                                 stats))
+        assert gm.shape == wm.shape and gv.shape == wv.shape
+        assert ((gm - wm).abs() <= 1e-5 * (wm.abs() + wv.sqrt())).all()
+        assert ((gv - wv).abs() <= 1e-4 * wv).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("stats", ["batch", "instance"])
+@pytest.mark.parametrize("block", SPADE_BLOCKS, ids=str)
+def test_spade_modulate_kernel_with_biases_equals_plain(cuda, block, stats,
+                                                        layout):
+    """spade_1 (gamma/beta bias, x read upsampled after block 0) and
+    spade_2 (gamma/beta bias and conv_1's bias on x) of a block, in either
+    layout, equal to the plain chain bit for bit, in the input's layout."""
+    c = _block_calls(torch.Generator(cuda).manual_seed(sum(block) + 1), block,
+                     layout, cuda)
+    for x, gb, up, xb, gbb in (
+            (c["x_in"], c["gb1"], c["up"], None, c["gbb1"]),
+            (c["h1"], c["gb2"], False, c["b1"], c["gbb2"])):
+        s = sp.normed(x, stats, bias=xb)
+        before = sp.spade_modulate.launches
+        got = sp.spade_modulate(x, gb, s.mean, s.r, 0.2, up, xb, gbb)
+        torch.cuda.synchronize()
+        assert sp.spade_modulate.launches == before + 1
+        want = sp.spade_modulate_plain(x, gb, s.mean, s.r, 0.2, up, xb, gbb)
+        assert got.shape == want.shape == gb[:, : x.shape[1]].shape
+        assert got.is_contiguous(memory_format=LAYOUTS[layout])
+        assert _same_bits(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("block", SPADE_BLOCKS, ids=str)
+def test_spade_residual_kernel_equals_plain(cuda, block, layout):
+    """A block's closing sum: conv_2's output with its bias plus conv_3's
+    with its own (a learned skip), or plus the block input read upsampled,
+    in either layout, equal to the plain chain bit for bit; and every
+    variant of the kernel (skip or input, up or not) on the block's
+    shapes."""
+    c = _block_calls(torch.Generator(cuda).manual_seed(sum(block) + 2), block,
+                     layout, cuda)
+    h, b2 = c["h2"], c["b2"]
+    cases = [(c["skip"], c["b3"], False)] if c["skip"] is not None else []
+    if c["x_in"].shape[1] == h.shape[1]:
+        cases.append((c["x_in"], None, c["up"]))
+    cases += [(c["h1"], c["b1"], False), (c["h1"], None, False)]
+    for res, rb, up in cases:
+        before = sp.spade_residual.launches
+        got = sp.spade_residual(h, b2, res, rb, up)
+        torch.cuda.synchronize()
+        assert sp.spade_residual.launches == before + 1
+        want = sp.spade_residual_plain(h, b2, res, rb, up)
+        assert got.shape == h.shape
+        assert got.is_contiguous(memory_format=LAYOUTS[layout])
+        assert _same_bits(got, want)
